@@ -5,17 +5,21 @@
 
 Phases, in order (each prints as it goes; any failure exits non-zero):
 
-1. build   — compile csrc/*.cu with nvcc for sm_90a, one process per source.
+1. build   — compile csrc/*.cu with nvcc for sm_90a, one process per source,
+             all at once.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the main path's shapes (S=1024, the full rnnoise_synth_v1 model),
-             timed beside the plain version and one PyTorch library call.
-3. main    — process_frames_tm_i16 at S=1024, T=100, two chained calls with
-             the launch counters zeroed before and read after; then 150
-             stateful frames at S=64 through the kernels and through the
-             plain versions, held to the parity budget.
-4. serve   — StreamingEngine with 16 slots: ticks, a detach and re-attach,
-             pipelined mode and flush.
-5. timing  — one chained chunk at S=1024, T=100: realtime streams per card.
+             timed beside the plain version and, where one exists, one
+             PyTorch library call.
+3. main    — for each kernel configuration of process_frames_tm_i16
+             (config.CONFIGURATIONS: scan, xcorr, fused): S=1024, T=100, two
+             chained calls with the launch counters zeroed before and read
+             after; then 150 stateful frames at S=64 through the kernels and
+             through the plain versions, held to the parity budget.
+4. serve   — StreamingEngine with 16 slots on the default configuration:
+             ticks, a detach and re-attach, pipelined mode and flush.
+5. timing  — for each configuration the median of chained S=1024, T=100
+             chunks, taken in turns: realtime streams per card.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Without a CUDA device it exits 1 and prints no result.
@@ -34,9 +38,11 @@ MODEL = os.path.join(REPO, "models", "rnnoise_synth_v1.blob")
 MEM_BW = 3.35e12          # H100 SXM device memory, bytes/s
 F32_PEAK = 67e12          # f32 outside the tensor cores, flop/s
 INT8_PEAK = 1979e12       # int8 tensor cores, op/s
-FFT_OPS = 2.5 * 960 * np.log2(960)   # flops of one real 960-point FFT
+FFT_OPS = 2.5 * 960 * np.log2(960)     # flops of one real 960-point FFT
+FFT1024_OPS = 2.5 * 1024 * 10          # flops of one real 1024-point FFT
 S_MAIN, T_MAIN = 1024, 100
 S_PARITY, T_PARITY = 64, 150
+TIMING_ROUNDS = 5
 SEED = 1234
 
 
@@ -95,17 +101,28 @@ def rel_row_err(a, b):
     return float(((a - b).abs().amax(dim=1) / den).max())
 
 
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    f32 operations over the f32 peak."""
+    t_b, t_o = n_bytes / MEM_BW, flops / F32_PEAK
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from rnnoise_tpu_torch import config as rt_config
     from rnnoise_tpu_torch import kernels
     from rnnoise_tpu_torch.api import RNNoise
-    from rnnoise_tpu_torch.config import resolve_device
+    from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device
     from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
+    from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_xcorr, pitch
     from rnnoise_tpu_torch.dsp import cuda_spectral as spec
+    from rnnoise_tpu_torch.dsp.transform import (compute_band_corr,
+                                                 compute_band_energy)
     from rnnoise_tpu_torch.models.rnn import RNNState
     from rnnoise_tpu_torch.nn import cuda_rnn
     from rnnoise_tpu_torch.runtime.engine import StreamingEngine
@@ -187,16 +204,15 @@ def main():
     # inputs read once (mem, x, the 960-sample pitch window, start, the
     # window table), X and P written once; operations as two real 960-point
     # FFTs (5/2 N log2 N each) plus the windowing and the 1/960 scaling
-    fwd_bytes = 4 * (S * (480 + 480 + 960 + 1 + 2 * 962) + 960)
-    fwd_ops = S * 2 * (FFT_OPS + 960 + 962)
+    fwd_bound = bound(4 * (S * (480 + 480 + 960 + 1 + 2 * 962) + 960),
+                      S * 2 * (FFT_OPS + 960 + 962))
     fwd_rec = dict(
         name="forward_spectral", route="cuda", source="rnnoise_tpu_torch/csrc/spectral.cu",
         replaces="rnnoise_tpu/dsp/pallas_spectral.py:388",
         max_abs_err=float(max((kX - pX).abs().max(), (kP - pP).abs().max())),
         ms=gpu_time(lambda: spec.forward_spectral(mem, x, pbuf, start)),
         plain_ms=gpu_time(lambda: spec.forward_spectral_plain(mem, x, pbuf, start)),
-        bound_ms=1e3 * max(fwd_bytes / MEM_BW, fwd_ops / F32_PEAK),
-        bound_by="bytes" if fwd_bytes / MEM_BW >= fwd_ops / F32_PEAK else "operations",
+        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
         library_ms=gpu_time(lambda: torch.fft.rfft(both, dim=-1)))
 
     Y = kX
@@ -207,65 +223,194 @@ def main():
     log(f"[kernels] inverse_spectral max err / row max {inv_err:.3e} (tolerance 1e-4)")
     check(inv_err <= 1e-4, "inverse_spectral disagrees with its plain version")
     Yc = torch.complex(Y[:, :481], Y[:, 481:])
-    inv_bytes = 4 * (S * (962 + 960) + 960)
-    inv_ops = S * (FFT_OPS + 960)                 # one real FFT, the window
+    inv_bound = bound(4 * (S * (962 + 960) + 960), S * (FFT_OPS + 960))
     inv_rec = dict(
         name="inverse_spectral", route="cuda", source="rnnoise_tpu_torch/csrc/spectral.cu",
         replaces="rnnoise_tpu/dsp/pallas_spectral.py:538",
         max_abs_err=float((k_out - p_out).abs().max()),
         ms=gpu_time(lambda: spec.inverse_spectral(Y)),
         plain_ms=gpu_time(lambda: spec.inverse_spectral_plain(Y)),
-        bound_ms=1e3 * max(inv_bytes / MEM_BW, inv_ops / F32_PEAK),
-        bound_by="bytes" if inv_bytes / MEM_BW >= inv_ops / F32_PEAK else "operations",
+        bound_ms=inv_bound[0], bound_by=inv_bound[1],
         library_ms=gpu_time(lambda: torch.fft.irfft(Yc, n=960, dim=-1)))
 
+    # the pitch analysis' inputs come from a real decimation and coarse
+    # search of generated PCM, and the previous period and gain from the
+    # frame before, so the ladder takes real branches
+    seq = signals(S, 5, dev, SEED + 3, quiet=range(0, S, 16)).float()
+    seq = seq.transpose(0, 1).reshape(S, -1)                 # [S, 2400]
+
+    def frame_inputs(end):
+        buf = seq[:, end - 1728:end].contiguous()
+        ds = pitch.pitch_downsample(buf)
+        return (buf[:, -960:-480].contiguous(), buf[:, -480:].contiguous(), buf,
+                ds, *pitch.coarse_search(ds))
+    zero_i = torch.zeros(S, dtype=torch.int32, device=dev)
+    _, _, prev_p, prev_g = cuda_analysis.analysis_spectral_plain(
+        *frame_inputs(1920), zero_i, zero_i.float())
+    a_args = (*frame_inputs(2400), prev_p, prev_g)
+    ds = a_args[3]
+
+    bx_k = cuda_xcorr.lag_corr_table_kernel(ds)
+    bx_p = cuda_xcorr.lag_corr_table_plain(ds)
+    torch.cuda.synchronize()
+    xc_err = rel_row_err(bx_k, bx_p)
+    log(f"[kernels] lag_corr_table max err / row max {xc_err:.3e} (tolerance 1e-6)")
+    check(xc_err <= 1e-6, "lag_corr_table disagrees with its plain version")
+    # ds read once, bx written once; operations as three real 1024-point
+    # FFTs (the correlation theorem) and the 513-bin product
+    xc_bound = bound(4 * S * (864 + 385), S * (3 * FFT1024_OPS + 6 * 513))
+    x_win = ds[:, 384:864].contiguous()
+    xc_rec = dict(
+        name="lag_corr_table", route="cuda", source="rnnoise_tpu_torch/csrc/analysis.cu",
+        replaces="rnnoise_tpu/dsp/pallas_xcorr.py:150",
+        max_abs_err=float((bx_k - bx_p).abs().max()),
+        ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_kernel(ds)),
+        plain_ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_plain(ds)),
+        bound_ms=xc_bound[0], bound_by=xc_bound[1],
+        library_ms=gpu_time(lambda: pitch.batched_xcorr(x_win, ds, 385)))
+
+    kX, kP, kT, kg = cuda_analysis.analysis_spectral(*a_args)
+    pX, pP, pT, pg = cuda_analysis.analysis_spectral_plain(*a_args)
+    fX, fP = spec.forward_spectral(*a_args[:3], 1728 - 960 - kT)
+    torch.cuda.synchronize()
+    same = kT == pT
+    t0_diff = int((~same).sum())
+    an_gain_err = float((kg - pg)[same].abs().max())
+    an_err = max(rel_row_err(kX[same], pX[same]), rel_row_err(kP[same], pP[same]))
+    bitwise = bool(torch.equal(kX, fX) and torch.equal(kP, fP))
+    log(f"[kernels] analysis_spectral: T0 differs in {t0_diff} of {S} streams "
+        f"(<= 2), gain err {an_gain_err:.3e} (<= 1e-6), X/P err / row max "
+        f"{an_err:.3e} (<= 1e-4), X and P equal forward_spectral's: {bitwise}; "
+        f"{int((kT != prev_p).sum())} periods moved since the frame before")
+    check(t0_diff <= 2 and an_gain_err <= 1e-6 and an_err <= 1e-4,
+          "analysis_spectral disagrees with its plain version")
+    check(bitwise, "analysis_spectral's spectra differ from forward_spectral's")
+    # inputs read once (mem, x, the 960-sample pitch window at the resolved
+    # period, ds, bp0, bp1, the previous period and gain), X, P, T0 and gain
+    # written once; operations as the correlation's three real 1024-point
+    # FFTs, the 864 squares and sliding sums of the energies, and two real
+    # 960-point FFTs with their windowing and scaling
+    an_bound = bound(4 * S * (480 + 480 + 960 + 864 + 4 + 2 * 962 + 2),
+                     S * (3 * FFT1024_OPS + 6 * 513 + 3 * 864
+                          + 2 * (FFT_OPS + 960 + 962)))
+    an_rec = dict(
+        name="analysis_spectral", route="cuda", source="rnnoise_tpu_torch/csrc/analysis.cu",
+        replaces="rnnoise_tpu/dsp/pallas_analysis.py:388",
+        max_abs_err=float(max((kX - pX)[same].abs().max(), (kP - pP)[same].abs().max(),
+                              an_gain_err)),
+        ms=gpu_time(lambda: cuda_analysis.analysis_spectral(*a_args)),
+        plain_ms=gpu_time(lambda: cuda_analysis.analysis_spectral_plain(*a_args)),
+        bound_ms=an_bound[0], bound_by=an_bound[1],
+        library_ms=None)
+
+    # the post-filter's inputs: the analysed spectrum, that of a noisier
+    # pitch window, random gains, every 8th stream silent
+    Xd = kX
+    Pd = spec.forward_spectral(*a_args[:2], a_args[2] + rnd(S, 1728, scale=500.0),
+                               1728 - 960 - kT)[1]
+    Ex_d, Ep_d = compute_band_energy(Xd), compute_band_energy(Pd)
+    Exp_d = compute_band_corr(Xd, Pd) / torch.sqrt(0.001 + Ex_d * Ep_d)
+    p_args = (Xd, Pd, Ex_d, Ep_d, Exp_d,
+              0.05 + 0.95 * torch.rand(S, 32, generator=g, device=dev),
+              torch.rand(S, 32, generator=g, device=dev),
+              Ex_d * (0.5 + 1.5 * torch.rand(S, 1, generator=g, device=dev)),
+              torch.arange(S, device=dev) % 8 == 0, rnd(S, 480, scale=3000.0))
+    k_post = spec.postfilter_synthesis(*p_args)
+    p_post = spec.postfilter_synthesis_plain(*p_args)
+    torch.cuda.synchronize()
+    # out against its row maximum; synthesis_mem, the synthesised frame's
+    # second half, against the row maximum of the whole frame (a near-silent
+    # stream's second half can lie below the f32 rounding of its spectrum)
+    frame_max = torch.maximum((p_post[0] - p_args[9]).abs().amax(1),
+                              p_post[1].abs().amax(1)).clamp(min=1e-30)
+    post_err = max(rel_row_err(k_post[0], p_post[0]),
+                   float(((k_post[1] - p_post[1]).abs().amax(1) / frame_max).max()))
+    lastg_err = float((k_post[2] - p_post[2]).abs().max())
+    log(f"[kernels] postfilter_synthesis max err / row max {post_err:.3e} (<= 1e-4), "
+        f"lastg err {lastg_err:.3e} (<= 2e-5)")
+    check(post_err <= 1e-4 and lastg_err <= 2e-5,
+          "postfilter_synthesis disagrees with its plain version")
+    # inputs read once (dX, dP, six [S, 32] band arrays, the silence bytes,
+    # synthesis_mem, the band and interpolation tables), out, synthesis_mem
+    # and lastg written once; operations as one real 960-point FFT with the
+    # window and overlap-add, and per bin the comb, renormalisation and gain
+    # (three 2-term interpolations and six products)
+    post_bound = bound(4 * S * (2 * 962 + 6 * 32 + 480 + 480 + 480 + 32) + S
+                       + 4 * 2 * 32 * 481,
+                       S * (FFT_OPS + 2 * 960 + 481 * 18))
+    post_rec = dict(
+        name="postfilter_synthesis", route="cuda", source="rnnoise_tpu_torch/csrc/spectral.cu",
+        replaces="rnnoise_tpu/dsp/pallas_spectral.py:489",
+        max_abs_err=float(max((a - b).abs().max() for a, b in zip(k_post, p_post))),
+        ms=gpu_time(lambda: spec.postfilter_synthesis(*p_args)),
+        plain_ms=gpu_time(lambda: spec.postfilter_synthesis_plain(*p_args)),
+        bound_ms=post_bound[0], bound_by=post_bound[1],
+        library_ms=None)
+
     counted = ((rnn_rec, cuda_rnn.compute_rnn_step),
-               (fwd_rec, spec.forward_spectral), (inv_rec, spec.inverse_spectral))
+               (fwd_rec, spec.forward_spectral), (inv_rec, spec.inverse_spectral),
+               (xc_rec, cuda_xcorr.lag_corr_table_kernel),
+               (an_rec, cuda_analysis.analysis_spectral),
+               (post_rec, spec.postfilter_synthesis))
+    path_kernels = {
+        "scan": ("rnn_step", "forward_spectral", "inverse_spectral"),
+        "xcorr": ("rnn_step", "forward_spectral", "inverse_spectral", "lag_corr_table"),
+        "fused": ("analysis_spectral", "rnn_step", "postfilter_synthesis")}
+    for rec, _ in counted:
+        rec["launches"] = 0
+        rec["launches_by_path"] = {}
 
     def zero_counts():
         for _, fn in counted:
             fn.launches = 0
 
-    # 3. the main path -----------------------------------------------------
+    # 3. the main path, in each configuration -------------------------------
     pcm = signals(S_MAIN, 2 * T_MAIN, dev, SEED, quiet=range(0, S_MAIN, 16))
-    state = init_state(S_MAIN, cfg, dev)
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    for c in range(2):
-        state, out, vad = process_frames_tm_i16(
-            params, state, pcm[c * T_MAIN:(c + 1) * T_MAIN])
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    for rec, fn in counted:
-        rec["launches"] = fn.launches
-    log(f"[main] S={S_MAIN} T={T_MAIN} x2 chained: {main_s:.2f} s, launches "
-        + ", ".join(f"{r['name']}={r['launches']}" for r, _ in counted))
-    for rec, _ in counted:
-        check(rec["launches"] > 0, f"main path never launched {rec['name']}")
-    check(tuple(out.shape) == (T_MAIN, S_MAIN, 480) and out.dtype == torch.int16,
-          "main path output shape")
-    check(bool(torch.isfinite(vad).all()) and tuple(vad.shape) == (T_MAIN, S_MAIN),
-          "main path VAD")
-    for name, t in zip(state._fields, state):
-        for u in (t if isinstance(t, tuple) else (t,)):
-            check(bool(torch.isfinite(u.float()).all()), f"state {name} not finite")
-
     pcm64 = signals(S_PARITY, T_PARITY, dev, SEED + 1, quiet=range(0, S_PARITY, 8))
-    st_k, out_k, vad_k = process_frames_tm_i16(params, init_state(S_PARITY, cfg, dev), pcm64)
-    st_p, out_p, vad_p = process_frames_tm_i16(params, init_state(S_PARITY, cfg, dev), pcm64,
-                                               plain=True)
-    pcm_err = int((out_k.int() - out_p.int()).abs().max())
-    vad_err = float((vad_k - vad_p).abs().max())
-    g_err = float((st_k.lastg - st_p.lastg).abs().max())
-    per_flips = int((st_k.last_period != st_p.last_period).sum())
-    log(f"[main] {T_PARITY} frames S={S_PARITY}, kernels vs plain: PCM {pcm_err} LSB "
-        f"(<= 4), VAD {vad_err:.2e} (<= 2e-3), lastg {g_err:.2e} (<= 1e-3), "
-        f"final periods differing {per_flips}")
-    check(pcm_err <= 4 and vad_err <= 2e-3 and g_err <= 1e-3,
-          "kernel path leaves the parity budget of the plain path")
+    states = {}
+    for path, rt in CONFIGURATIONS.items():
+        state = init_state(S_MAIN, cfg, dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        for c in range(2):
+            state, out, vad = process_frames_tm_i16(
+                params, state, pcm[c * T_MAIN:(c + 1) * T_MAIN], rt)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        states[path] = state
+        for rec, fn in counted:
+            rec["launches_by_path"][path] = fn.launches
+            rec["launches"] += fn.launches
+        log(f"[main:{path}] S={S_MAIN} T={T_MAIN} x2 chained: {main_s:.2f} s, launches "
+            + ", ".join(f"{r['name']}={fn.launches}" for r, fn in counted))
+        for rec, fn in counted:
+            check((fn.launches > 0) == (rec["name"] in path_kernels[path]),
+                  f"{path} path launched {rec['name']} {fn.launches} times")
+        check(tuple(out.shape) == (T_MAIN, S_MAIN, 480) and out.dtype == torch.int16,
+              "main path output shape")
+        check(bool(torch.isfinite(vad).all()) and tuple(vad.shape) == (T_MAIN, S_MAIN),
+              "main path VAD")
+        for name, t in zip(state._fields, state):
+            for u in (t if isinstance(t, tuple) else (t,)):
+                check(bool(torch.isfinite(u.float()).all()), f"state {name} not finite")
 
-    # 4. serving -------------------------------------------------------------
+        st_k, out_k, vad_k = process_frames_tm_i16(
+            params, init_state(S_PARITY, cfg, dev), pcm64, rt)
+        st_p, out_p, vad_p = process_frames_tm_i16(
+            params, init_state(S_PARITY, cfg, dev), pcm64, rt, plain=True)
+        pcm_err = int((out_k.int() - out_p.int()).abs().max())
+        vad_err = float((vad_k - vad_p).abs().max())
+        g_err = float((st_k.lastg - st_p.lastg).abs().max())
+        per_flips = int((st_k.last_period != st_p.last_period).sum())
+        log(f"[main:{path}] {T_PARITY} frames S={S_PARITY}, kernels vs plain: PCM "
+            f"{pcm_err} LSB (<= 4), VAD {vad_err:.2e} (<= 2e-3), lastg {g_err:.2e} "
+            f"(<= 1e-3), final periods differing {per_flips}")
+        check(pcm_err <= 4 and vad_err <= 2e-3 and g_err <= 1e-3,
+              f"{path}: kernel path leaves the parity budget of the plain path")
+
+    # 4. serving, on the default configuration ---------------------------------
+    default = next(p for p, rt in CONFIGURATIONS.items() if rt == rt_config.DEFAULT_RUNTIME)
     zero_counts()
     T_CH = 8
     audio = signals(16, 4 * T_CH, dev, SEED + 2).transpose(0, 1).reshape(16, -1).cpu().numpy()
@@ -291,19 +436,29 @@ def main():
                 check(bool(torch.isfinite(u.float()).all()), f"engine state {name}")
         log(f"[serve] pipelined={pipelined}: advanced {advanced}, outputs ok")
     serve_counts = {r["name"]: fn.launches for r, fn in counted}
-    log("[serve] launches", serve_counts)
-    check(all(v > 0 for v in serve_counts.values()), "serving path skipped a kernel")
+    log(f"[serve] configuration {default}, launches", serve_counts)
+    check(all((v > 0) == (k in path_kernels[default]) for k, v in serve_counts.items()),
+          "serving path skipped a kernel of its configuration")
 
-    # 5. timing --------------------------------------------------------------
+    # 5. timing: chained chunks, the configurations in turns ------------------
     chunk = pcm[:T_MAIN]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state, out, vad = process_frames_tm_i16(params, state, chunk)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    streams = S_MAIN * T_MAIN * 0.01 / dt
-    log(f"[timing] one chained chunk S={S_MAIN} T={T_MAIN}: {dt * 1e3:.1f} ms, "
-        f"{streams:.1f} realtime streams on {smi}")
+    times = {path: [] for path in CONFIGURATIONS}
+    for _ in range(TIMING_ROUNDS):
+        for path, rt in CONFIGURATIONS.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[path], out, vad = process_frames_tm_i16(params, states[path], chunk, rt)
+            torch.cuda.synchronize()
+            times[path].append(time.perf_counter() - t0)
+    streams = {}
+    for path, ts in times.items():
+        med = float(np.median(ts))
+        streams[path] = S_MAIN * T_MAIN * 0.01 / med
+        log(f"[timing:{path}] S={S_MAIN} T={T_MAIN}, median of {len(ts)} chained chunks "
+            f"{med * 1e3:.1f} ms (" + ", ".join(f"{t * 1e3:.1f}" for t in ts)
+            + f"): {streams[path]:.1f} realtime streams on {smi}")
+    log(f"[timing] most realtime streams: {max(streams, key=streams.get)}; "
+        f"default configuration: {default}")
 
     print(json.dumps({"kernels": [rec for rec, _ in counted]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-// Forward and inverse 960-point real spectra for a batch of streams, on
-// Hopper (sm_90a).
+// Forward and inverse 960-point real spectra, and the post-filter with
+// synthesis, for a batch of streams, on Hopper (sm_90a).
 //
 // rnnt_forward_spectral replaces the TPU kernel
 // rnnoise_tpu/dsp/pallas_spectral.py:forward_spectral (_fwd_kernel with
@@ -13,41 +13,45 @@
 // symmetric [S, 962] re|im spectrum (bin weights 1 at k = 0 and 480, 2
 // elsewhere), times the synthesis window -> [S, 960].
 //
+// rnnt_postfilter_synthesis replaces pallas_spectral.py:postfilter_synthesis
+// (_post_kernel -> _post_body): the delayed frame's comb filter (the band
+// strength r interpolated to bins, X += r P, renormalised to the band
+// energies), the gain cap max(g, .6 lastg) interpolated and applied, the
+// silence blend and the lastg update, then the inverse DFT, the synthesis
+// window and the overlap-add with synthesis_mem.
+//
 // What bounds them: a direct DFT is 481 x 960 multiply-adds per spectrum,
 // against 15-19 KB of input and output per stream, so the issue rate bounds
 // them, not device memory.  Twiddles indexed by (n*k) mod 960 would hit
-// shared-memory banks unevenly, so both kernels make them by rotation in
-// registers instead.  The design halves the work with the (-1)^k symmetry of
-// samples n and n+480 (even bins see v[n]+v[n+480], odd bins v[n]-v[n+480];
-// the inverse gets outputs n and n+480 from one pass as E+O and E-O), and
-// lets one twiddle serve 4 streams (x 2 spectra forward).
+// shared-memory banks unevenly, so the kernels make them by rotation in
+// registers instead (spectral_common.cuh).  The design halves the work with
+// the (-1)^k symmetry of samples n and n+480, and lets one twiddle serve 4
+// streams (x 2 spectra forward).
 //
 // The forward spectra feed the pitch, band-energy and silence decisions,
 // which sit on knife edges: a 2e-6 difference in X flips an int8 activation
 // now and then, and the flip shows as a transient of a few LSB two frames
 // long.  So the forward kernel windows, folds and sums in f64 and rounds each
 // bin once to f32, as its plain version (an f64 DFT matmul) does; the two
-// then agree to an ulp.  Its f64 rotation drifts less than 1e-13 over 480
-// steps.  The inverse only shapes the output, so it rotates and sums in f32
-// with FMA, reloading from the table every 16 steps, and agrees with its
-// plain version (an f32 DFT matmul) to ~2e-6 of each row's largest magnitude.
+// then agree to an ulp.  The inverse and the post-filter only shape the
+// output (nothing after them decides on a threshold but the int16 rounding),
+// so they sum in f32 with FMA and agree with their plain versions to a few
+// 1e-6 of each row's largest magnitude.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "spectral_common.cuh"
 
 namespace {
 
-constexpr int FS = 480;            // frame
-constexpr int WS = 960;            // window / DFT length
-constexpr int NBIN = 481;          // bins kept
-constexpr int PBUF = 1728;         // pitch buffer
+using namespace rnnt;
+
+constexpr int NB = 32;             // bands
 constexpr int GF = 4;              // streams per block, forward
 constexpr int GI = 4;              // streams per block, inverse
 constexpr int FWD_THREADS = 512;   // 256 even bins | 256 odd bins
 constexpr int INV_THREADS = FS;    // one pair of outputs (n, n+480) each
-constexpr int MI = 241;            // bin pairs (2m, 2m+1), m < 241
-constexpr int RESEED = 16;         // inverse: table reload period, in pairs
-static_assert(240 % RESEED == 0, "bin 480 must take its twiddle from the table");
+constexpr int POST_THREADS = FS;   // one stream per block, as the inverse
 
 // dynamic shared memory of the forward kernel:
 // [spectrum][stream][parity][n] with parity 0 = v[n]+v[n+480], 1 = v[n]-v[n+480]
@@ -60,9 +64,7 @@ forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
                const double2* __restrict__ tw, float* __restrict__ X,
                float* __restrict__ P, int S) {
   extern __shared__ __align__(16) double s_u[];
-  auto u_at = [&](int sp, int g, int par) {
-    return s_u + ((sp * GF + g) * 2 + par) * FS;
-  };
+  auto u_at = [&](int sp, int g) { return s_u + (sp * GF + g) * 2 * FS; };
   const int tid = threadIdx.x, s0 = blockIdx.x * GF;
   for (int i = tid; i < GF * FS; i += blockDim.x) {
     int g = i / FS, n = i - g * FS, s = s0 + g;
@@ -71,56 +73,27 @@ forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
       double w0 = window[n], w1 = window[n + FS];
       a = w0 * mem[(size_t)s * FS + n];
       b = w1 * x[(size_t)s * FS + n];
-      int st = min(max(start[s], 0), PBUF - WS);
+      int st = min(max(start[s], 0), MAX_START);
       const float* p = pbuf + (size_t)s * PBUF + st;
       pa = w0 * p[n];
       pb = w1 * p[n + FS];
     }
-    u_at(0, g, 0)[n] = a + b;
-    u_at(0, g, 1)[n] = a - b;
-    u_at(1, g, 0)[n] = pa + pb;
-    u_at(1, g, 1)[n] = pa - pb;
+    fwd_fold(u_at(0, g), n, a, b);
+    fwd_fold(u_at(1, g), n, pa, pb);
   }
   __syncthreads();
 
   const int par = tid >= FWD_THREADS / 2;
   const int k = 2 * (tid & (FWD_THREADS / 2 - 1)) + par;
   if (k >= NBIN) return;
-  double re[2][GF], im[2][GF];
-#pragma unroll
-  for (int sp = 0; sp < 2; ++sp)
-#pragma unroll
-    for (int g = 0; g < GF; ++g) { re[sp][g] = 0.0; im[sp][g] = 0.0; }
-  // the twiddle of sample n, (cos, sin)(2 pi n k / 960), by rotation with
-  // w = twiddle of sample 1: f64 keeps its drift over 480 steps below 1e-13
-  const double2 w = tw[k];
-  double cr = 1.0, ci = 0.0;
-  for (int n = 0; n < FS; n += 2) {
-    const double dr = fma(cr, w.x, -ci * w.y), di = fma(cr, w.y, ci * w.x);
-#pragma unroll
-    for (int sp = 0; sp < 2; ++sp)
-#pragma unroll
-      for (int g = 0; g < GF; ++g) {
-        double2 u = *reinterpret_cast<const double2*>(u_at(sp, g, par) + n);
-        re[sp][g] = fma(u.x, cr, re[sp][g]);
-        im[sp][g] = fma(u.x, ci, im[sp][g]);
-        re[sp][g] = fma(u.y, dr, re[sp][g]);
-        im[sp][g] = fma(u.y, di, im[sp][g]);
-      }
-    cr = fma(dr, w.x, -di * w.y);
-    ci = fma(dr, w.y, di * w.x);
-  }
-  const double scale = 1.0 / WS;
+  double re[2 * GF], im[2 * GF];         // spectrum sp of stream g at sp*GF+g
+  fwd_bin_sums<2 * GF>(s_u, k, tw, re, im);
 #pragma unroll
   for (int g = 0; g < GF; ++g) {
     int s = s0 + g;
     if (s >= S) break;
-    float* xo = X + (size_t)s * 2 * NBIN;
-    float* po = P + (size_t)s * 2 * NBIN;
-    xo[k] = (float)(re[0][g] * scale);
-    xo[NBIN + k] = (float)(-im[0][g] * scale);
-    po[k] = (float)(re[1][g] * scale);
-    po[NBIN + k] = (float)(-im[1][g] * scale);
+    fwd_store(X + (size_t)s * 2 * NBIN, k, re[g], im[g]);
+    fwd_store(P + (size_t)s * 2 * NBIN, k, re[GF + g], im[GF + g]);
   }
 }
 
@@ -131,57 +104,19 @@ inverse_kernel(const float* __restrict__ Y, const float* __restrict__ window,
   // per stream and bin pair m: {w*re[2m], w*im[2m], w*re[2m+1], w*im[2m+1]}
   __shared__ float4 s_y[GI][MI];
   const int tid = threadIdx.x, s0 = blockIdx.x * GI;
-  for (int i = tid; i < WS; i += blockDim.x)
-    s_tw[i] = make_float2((float)tw[i].x, (float)tw[i].y);
+  load_twiddles_f32(s_tw, tw);
   for (int i = tid; i < GI * MI; i += blockDim.x) {
     int g = i / MI, m = i - g * MI, s = s0 + g;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (s < S) {
-      const float* y = Y + (size_t)s * 2 * NBIN;
-      int ke = 2 * m, ko = 2 * m + 1;
-      float we = (ke == 0 || ke == NBIN - 1) ? 1.0f : 2.0f;
-      v.x = we * y[ke];
-      v.y = we * y[NBIN + ke];
-      if (ko < NBIN - 1) {                       // odd bins stop at 479
-        v.z = 2.0f * y[ko];
-        v.w = 2.0f * y[NBIN + ko];
-      }
-    }
-    s_y[g][m] = v;
+    const float* y = Y + (size_t)s * 2 * NBIN;
+    s_y[g][m] = s < S ? inv_pair(y, y + NBIN, m)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   __syncthreads();
 
   const int n = tid;
   if (n >= FS) return;
   float e[GI], o[GI];
-#pragma unroll
-  for (int g = 0; g < GI; ++g) { e[g] = 0.0f; o[g] = 0.0f; }
-  // twiddles (cos, sin)(2 pi k n / 960) of bins k = 2m (ce) and 2m+1 (co):
-  // ce steps by rotation with the twiddle of bin 2, co = ce times that of
-  // bin 1; ce is reloaded from the table every RESEED bin pairs, which
-  // bounds the f32 rotation's drift and gives bin 480 (m = 240) the table's
-  // exact sin = 0
-  const int step = (2 * n) % WS;
-  const float2 t1 = s_tw[n], t2 = s_tw[step];
-  int idx = 0;                                   // (2m * n) mod 960
-  float2 ce = make_float2(1.0f, 0.0f);
-  for (int m = 0; m < MI; ++m) {
-    if (m % RESEED == 0) ce = s_tw[idx];
-    const float2 co = make_float2(fmaf(ce.x, t1.x, -ce.y * t1.y),
-                                  fmaf(ce.x, t1.y, ce.y * t1.x));
-#pragma unroll
-    for (int g = 0; g < GI; ++g) {
-      float4 v = s_y[g][m];
-      e[g] = fmaf(v.x, ce.x, e[g]);
-      e[g] = fmaf(-v.y, ce.y, e[g]);
-      o[g] = fmaf(v.z, co.x, o[g]);
-      o[g] = fmaf(-v.w, co.y, o[g]);
-    }
-    ce = make_float2(fmaf(ce.x, t2.x, -ce.y * t2.y),
-                     fmaf(ce.x, t2.y, ce.y * t2.x));
-    idx += step;
-    if (idx >= WS) idx -= WS;
-  }
+  inv_sums<GI>(s_y, s_tw, n, e, o);
   const float w0 = window[n], w1 = window[n + FS];
 #pragma unroll
   for (int g = 0; g < GI; ++g) {
@@ -190,6 +125,106 @@ inverse_kernel(const float* __restrict__ Y, const float* __restrict__ window,
     out[(size_t)s * WS + n] = w0 * (e[g] + o[g]);
     out[(size_t)s * WS + n + FS] = w1 * (e[g] - o[g]);
   }
+}
+
+// sum over bands b of m[b * NBIN] * v[b], in band order, f32 FMA: bin k of
+// the interpolation of band values v, with m = interp + k (neighbouring
+// threads read neighbouring bins)
+__device__ __forceinline__ float band_dot(const float* __restrict__ m,
+                                          const float* v) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc = fmaf(m[b * NBIN], v[b], acc);
+  return acc;
+}
+
+// One block per stream.  The band arithmetic uses the _rn intrinsics, so it
+// rounds as the plain version's elementwise operators do; the per-bin
+// interpolations (interp [32, 481]) and the band energies (band [481, 32])
+// are f32 dot products in their own order.
+__global__ void __launch_bounds__(POST_THREADS)
+postfilter_kernel(const float* __restrict__ dX, const float* __restrict__ dP,
+                  const float* __restrict__ dEx, const float* __restrict__ dEp,
+                  const float* __restrict__ dExp, const float* __restrict__ g,
+                  const float* __restrict__ lastg, const float* __restrict__ Ex,
+                  const uint8_t* __restrict__ silence,
+                  const float* __restrict__ smem,
+                  const float* __restrict__ band, const float* __restrict__ interp,
+                  const float* __restrict__ window, const double2* __restrict__ tw,
+                  float* __restrict__ out, float* __restrict__ smem_out,
+                  float* __restrict__ lastg_out) {
+  __shared__ float2 s_tw[WS];
+  __shared__ float4 s_y[1][MI];
+  __shared__ float s_re[NBIN], s_im[NBIN], s_e2[NBIN];
+  __shared__ float s_r[NB], s_gc[NB], s_norm[NB];
+  const int s = blockIdx.x, tid = threadIdx.x;
+  const float* X = dX + (size_t)s * 2 * NBIN;
+  const float* P = dP + (size_t)s * 2 * NBIN;
+  const bool silent = silence[s] != 0;
+  load_twiddles_f32(s_tw, tw);
+  if (tid < NB) {
+    const int i = s * NB + tid;
+    const float ex = dEx[i], ep = dEp[i], exp_ = dExp[i], gb = g[i];
+    // comb strength r (denoise.c:429-441)
+    const float e2 = __fmul_rn(exp_, exp_), g2 = __fmul_rn(gb, gb);
+    float r = exp_ > gb ? 1.0f
+        : __fdiv_rn(__fmul_rn(e2, __fsub_rn(1.0f, g2)),
+                    __fadd_rn((float)0.001, __fmul_rn(g2, __fsub_rn(1.0f, e2))));
+    r = __fsqrt_rn(fminf(fmaxf(r, 0.0f), 1.0f));
+    s_r[tid] = __fmul_rn(r, __fsqrt_rn(__fdiv_rn(ex, __fadd_rn((float)1e-8, ep))));
+    // gain cap and the energy-compensated lastg (denoise.c:479-489)
+    const float gc = fmaxf(gb, __fmul_rn((float)0.6, lastg[i]));
+    s_gc[tid] = gc;
+    const float lg = __fdiv_rn(__fmul_rn(gc, __fadd_rn(ex, (float)1e-3)),
+                               __fadd_rn(Ex[i], (float)1e-3));
+    lastg_out[i] = silent ? lastg[i] : fminf(lg, 1.0f);
+  }
+  __syncthreads();
+  for (int k = tid; k < NBIN; k += blockDim.x) {
+    const float rf = band_dot(interp + k, s_r);
+    const float yr = __fadd_rn(X[k], __fmul_rn(rf, P[k]));
+    const float yi = __fadd_rn(X[NBIN + k], __fmul_rn(rf, P[NBIN + k]));
+    s_re[k] = yr;
+    s_im[k] = yi;
+    s_e2[k] = __fadd_rn(__fmul_rn(yr, yr), __fmul_rn(yi, yi));
+  }
+  __syncthreads();
+  // band energies of the filtered spectrum: one warp per band
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  for (int b = warp; b < NB; b += nwarps) {
+    float acc = 0.0f;
+    for (int k = lane; k < NBIN; k += 32)
+      acc = fmaf(band[k * NB + b], s_e2[k], acc);
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      const float ex = dEx[s * NB + b];
+      s_norm[b] = __fsqrt_rn(__fdiv_rn(ex, __fadd_rn((float)1e-8, acc)));
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < NBIN; k += blockDim.x) {
+    if (silent) {
+      s_re[k] = X[k];
+      s_im[k] = X[NBIN + k];
+    } else {
+      const float nf = band_dot(interp + k, s_norm);
+      const float gf = band_dot(interp + k, s_gc);
+      s_re[k] = __fmul_rn(__fmul_rn(s_re[k], nf), gf);
+      s_im[k] = __fmul_rn(__fmul_rn(s_im[k], nf), gf);
+    }
+  }
+  __syncthreads();
+  for (int m = tid; m < MI; m += blockDim.x) s_y[0][m] = inv_pair(s_re, s_im, m);
+  __syncthreads();
+
+  const int n = tid;
+  if (n >= FS) return;
+  float e[1], o[1];
+  inv_sums<1>(s_y, s_tw, n, e, o);
+  const size_t row = (size_t)s * FS;
+  out[row + n] = __fadd_rn(__fmul_rn(window[n], __fadd_rn(e[0], o[0])), smem[row + n]);
+  smem_out[row + n] = __fmul_rn(window[n + FS], __fsub_rn(e[0], o[0]));
 }
 
 }  // namespace
@@ -221,6 +256,27 @@ int rnnt_inverse_spectral(const float* Y, const float* window,
   if (S <= 0) return 0;
   inverse_kernel<<<(S + GI - 1) / GI, INV_THREADS, 0, (cudaStream_t)stream>>>(
       Y, window, reinterpret_cast<const double2*>(twiddles), out, S);
+  return (int)cudaGetLastError();
+}
+
+// dX, dP [S, 962] re|im (the delayed frame); dEx, dEp, dExp, g, lastg, Ex
+// [S, 32]; silence [S] bytes (0 or 1); synthesis_mem [S, 480]; band [481, 32]
+// (bin energies -> bands); interp [32, 481] (band values -> bins); window
+// [960]; twiddles [960] f64.  Writes out [S, 480],
+// synthesis_mem_out [S, 480], lastg_out [S, 32].
+int rnnt_postfilter_synthesis(const float* dX, const float* dP, const float* dEx,
+                              const float* dEp, const float* dExp, const float* g,
+                              const float* lastg, const float* Ex,
+                              const uint8_t* silence, const float* synthesis_mem,
+                              const float* band, const float* interp,
+                              const float* window, const double* twiddles,
+                              float* out, float* synthesis_mem_out,
+                              float* lastg_out, int S, void* stream) {
+  if (S <= 0) return 0;
+  postfilter_kernel<<<S, POST_THREADS, 0, (cudaStream_t)stream>>>(
+      dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence, synthesis_mem, band,
+      interp, window, reinterpret_cast<const double2*>(twiddles), out,
+      synthesis_mem_out, lastg_out);
   return (int)cudaGetLastError();
 }
 

@@ -9,11 +9,14 @@ on silent frames the RNN state is left untouched and no gain or pitch
 filtering is applied, but synthesis and the delayed-spectrum rotation still
 happen — per-stream ``where`` masking instead of a branch.
 
-On CUDA tensors three kernels carry the frame: the forward spectra, the RNN
-step and the inverse spectrum (``dsp/cuda_spectral.py``,
-``nn/cuda_rnn.py``).  ``plain=True`` runs their plain PyTorch versions
-instead, to hold the kernels against them.  Everything else is plain
-PyTorch on either device.
+On CUDA tensors kernels carry the frame, in one of the configurations of
+``config.CONFIGURATIONS`` chosen by the RuntimeConfig: the forward spectra,
+the RNN step and the inverse spectrum ("scan"; ``dsp/cuda_spectral.py``,
+``nn/cuda_rnn.py``), plus the lag table ("xcorr"; ``dsp/cuda_xcorr.py``), or
+the fused pitch analysis, the RNN step and the fused post-filter with
+synthesis ("fused"; ``dsp/cuda_analysis.py``).  ``plain=True`` runs their
+plain PyTorch versions instead, to hold the kernels against them.
+Everything else is plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -28,10 +31,9 @@ from .config import (DEFAULT_MODEL, DEFAULT_RUNTIME, FRAME_SIZE, FREQ_SIZE,
                      RuntimeConfig, SILENCE_THRESHOLD, WINDOW_SIZE,
                      resolve_device)
 from .dsp import biquad as biquad_mod
-from .dsp import cuda_spectral
+from .dsp import cuda_analysis, cuda_spectral
 from .dsp import pitch as pitch_mod
-from .dsp.transform import (compute_band_corr, compute_band_energy, dct,
-                            frame_synthesis, interp_band_gain)
+from .dsp.transform import compute_band_corr, compute_band_energy, dct
 from .models.rnn import ModelParams, RNNState, compute_rnn, init_rnn_state
 
 
@@ -117,6 +119,7 @@ def _log_energy_follower(Ex: torch.Tensor) -> torch.Tensor:
 
 
 def compute_frame_features(state: DenoiseState, x: torch.Tensor,
+                           rt: RuntimeConfig = DEFAULT_RUNTIME,
                            plain: bool = False):
     """x: [S, FRAME_SIZE] HP-filtered PCM.  Returns the updated state
     (analysis mem, pitch buffer, pitch continuity) and this frame's
@@ -124,16 +127,26 @@ def compute_frame_features(state: DenoiseState, x: torch.Tensor,
     (denoise.c:347-398)."""
     pitch_buf = torch.cat([state.pitch_buf[:, FRAME_SIZE:], x], dim=-1)
     ds = pitch_mod.pitch_downsample(pitch_buf)
-    bx = pitch_mod.lag_corr_table(ds)     # shared by fine search + doubling
-    pitch = pitch_mod.pitch_search(ds, bx)
-    T0, gain = pitch_mod.remove_doubling(ds, PITCH_MAX_PERIOD - pitch,
-                                         state.last_period, state.last_gain,
-                                         bx)
-    # pitch-delayed window p[i] = pitch_buf[PITCH_BUF_SIZE-WINDOW_SIZE-T0+i]
-    start = PITCH_BUF_SIZE - WINDOW_SIZE - T0
-    forward = (cuda_spectral.forward_spectral_plain if plain
-               else cuda_spectral.forward_spectral)
-    X, P = forward(state.analysis_mem, x, pitch_buf, start)
+    if rt.analysis:
+        # fine search, doubling ladder, window and both forward spectra in
+        # one kernel; only the coarse search stays outside
+        bp0, bp1 = pitch_mod.coarse_search(ds)
+        analysis = (cuda_analysis.analysis_spectral_plain if plain
+                    else cuda_analysis.analysis_spectral)
+        X, P, T0, gain = analysis(state.analysis_mem, x, pitch_buf, ds, bp0,
+                                  bp1, state.last_period, state.last_gain)
+    else:
+        # shared by fine search + doubling
+        bx = pitch_mod.lag_corr_table(ds, rt.xcorr, plain)
+        pitch = pitch_mod.pitch_search(ds, bx)
+        T0, gain = pitch_mod.remove_doubling(ds, PITCH_MAX_PERIOD - pitch,
+                                             state.last_period,
+                                             state.last_gain, bx)
+        # pitch-delayed window p[i] = pitch_buf[PITCH_BUF_SIZE-WINDOW_SIZE-T0+i]
+        start = PITCH_BUF_SIZE - WINDOW_SIZE - T0
+        forward = (cuda_spectral.forward_spectral_plain if plain
+                   else cuda_spectral.forward_spectral)
+        X, P = forward(state.analysis_mem, x, pitch_buf, start)
     Ex = compute_band_energy(X)
     Ep = compute_band_energy(P)
     Exp = compute_band_corr(X, P) / torch.sqrt(0.001 + Ex * Ep)
@@ -154,25 +167,6 @@ def compute_frame_features(state: DenoiseState, x: torch.Tensor,
     return new_state, FrameFeatures(X, P, Ex, Ep, Exp, features, silence)
 
 
-def _per_bin(g: torch.Tensor) -> torch.Tensor:
-    """Band gains [S, 32] -> per-bin factors for a re|im spectrum [S, 962]."""
-    gf = interp_band_gain(g)
-    return torch.cat([gf, gf], dim=-1)
-
-
-def pitch_filter(X, P, Ex, Ep, Exp, g):
-    """rnn_pitch_filter (denoise.c:421-455) on re|im spectra."""
-    sq = torch.square
-    r = torch.where(Exp > g, torch.ones_like(Exp),
-                    sq(Exp) * (1.0 - sq(g)) / (0.001 + sq(g) * (1.0 - sq(Exp))))
-    r = torch.sqrt(torch.clamp(r, 0.0, 1.0))
-    r = r * torch.sqrt(Ex / (1e-8 + Ep))
-    X = X + _per_bin(r) * P
-    newE = compute_band_energy(X)
-    norm = torch.sqrt(Ex / (1e-8 + newE))
-    return X * _per_bin(norm)
-
-
 def process_frame(params: Optional[ModelParams], state: DenoiseState,
                   pcm: torch.Tensor, rt: RuntimeConfig = DEFAULT_RUNTIME,
                   plain: bool = False):
@@ -189,7 +183,7 @@ def process_frame(params: Optional[ModelParams], state: DenoiseState,
 
 def _process_frame_hp(params, state, x, rt, plain):
     """process_frame after the HP biquad (x already filtered)."""
-    state, ff = compute_frame_features(state, x, plain)
+    state, ff = compute_frame_features(state, x, rt, plain)
     silence = ff.silence
     S = x.shape[0]
     if params is not None:
@@ -202,17 +196,15 @@ def _process_frame_hp(params, state, x, rt, plain):
         g = torch.ones((S, NB_BANDS), dtype=torch.float32, device=x.device)
         vad = torch.zeros((S,), dtype=torch.float32, device=x.device)
 
-    # pitch-filter and apply the gains to the *previous* frame's spectrum
-    Xd = pitch_filter(state.delayed_X, state.delayed_P, state.delayed_Ex,
-                      state.delayed_Ep, state.delayed_Exp, g)
-    g_capped = torch.maximum(g, 0.6 * state.lastg)
-    lastg = torch.clamp(g_capped * (state.delayed_Ex + 1e-3)
-                        / (ff.Ex + 1e-3), max=1.0)
-    Xd = Xd * _per_bin(g_capped)
-    sil = silence[:, None]
-    X_synth = torch.where(sil, state.delayed_X, Xd)
-    lastg = torch.where(sil, state.lastg, lastg)
-    synthesis_mem, out = frame_synthesis(state.synthesis_mem, X_synth, plain)
+    # pitch-filter and apply the gains to the *previous* frame's spectrum,
+    # then synthesis
+    tail = (state.delayed_X, state.delayed_P, state.delayed_Ex,
+            state.delayed_Ep, state.delayed_Exp, g, state.lastg, ff.Ex,
+            silence, state.synthesis_mem)
+    if rt.postfilter and not plain:
+        out, synthesis_mem, lastg = cuda_spectral.postfilter_synthesis(*tail)
+    else:
+        out, synthesis_mem, lastg = cuda_spectral.postfilter_chain(*tail, plain)
 
     new_state = state._replace(
         synthesis_mem=synthesis_mem, lastg=lastg, rnn=rnn_state,

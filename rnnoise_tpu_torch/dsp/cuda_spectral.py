@@ -1,12 +1,13 @@
-"""The forward and inverse spectra as CUDA kernels (``csrc/spectral.cu``) —
-the port of ``rnnoise_tpu/dsp/pallas_spectral.py:forward_spectral`` and
-``inverse_spectral``.
+"""The forward and inverse spectra, and the post-filter with synthesis, as
+CUDA kernels (``csrc/spectral.cu``) — the port of
+``rnnoise_tpu/dsp/pallas_spectral.py:forward_spectral``,
+``inverse_spectral`` and ``postfilter_synthesis``.
 
 Unlike the TPU kernels, which keep a permuted 488-wide bin order, these
 work in natural order: spectra are ``[S, 962]`` re|im.  Each wrapper
-launches its kernel for CUDA tensors and uses its plain version (a dense
-DFT matmul from ``transform.py``, in f64 for the forward spectra) for CPU
-tensors.
+launches its kernel for CUDA tensors and uses its plain version (dense DFT
+matmuls from ``transform.py``, in f64 for the forward spectra; the
+post-filter's band arithmetic as ``denoise.py`` ran it) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import numpy as np
 import torch
 
 from .. import kernels, tables
-from ..config import FRAME_SIZE, FREQ_SIZE, PITCH_BUF_SIZE, WINDOW_SIZE
-from .transform import windowed_forward_transform, windowed_inverse_transform
+from ..config import (FRAME_SIZE, FREQ_SIZE, NB_BANDS, PITCH_BUF_SIZE,
+                      WINDOW_SIZE)
+from .transform import (device_table, frame_synthesis, per_bin, pitch_filter,
+                        windowed_forward_transform, windowed_inverse_transform)
 
 # Largest window start that stays inside the pitch buffer; both versions
 # clamp ``start`` to [0, MAX_START] (the main path gives [1, 708]).
@@ -48,6 +51,32 @@ def inverse_spectral_plain(Y):
     return windowed_inverse_transform(Y)
 
 
+def postfilter_chain(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
+                     synthesis_mem, plain=False):
+    """The delayed-frame tail as PyTorch operators around the inverse
+    spectrum (its kernel, or its plain version when ``plain``): the comb
+    filter and gains applied to the delayed spectrum dX (pitch spectrum dP,
+    band energies dEx, dEp, dExp), the silence blend, synthesis and
+    overlap-add.  Returns (out [S, 480], synthesis_mem [S, 480],
+    lastg [S, 32])."""
+    Xd = pitch_filter(dX, dP, dEx, dEp, dExp, g)
+    g_capped = torch.maximum(g, 0.6 * lastg)
+    lastg_new = torch.clamp(g_capped * (dEx + 1e-3) / (Ex + 1e-3), max=1.0)
+    Xd = Xd * per_bin(g_capped)
+    sil = silence[:, None]
+    X_synth = torch.where(sil, dX, Xd)
+    lastg_new = torch.where(sil, lastg, lastg_new)
+    synthesis_mem, out = frame_synthesis(synthesis_mem, X_synth, plain)
+    return out, synthesis_mem, lastg_new
+
+
+def postfilter_synthesis_plain(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
+                               synthesis_mem):
+    """Plain version of :func:`postfilter_synthesis`."""
+    return postfilter_chain(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
+                            synthesis_mem, plain=True)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_tables(device: str):
     """(window [960] f32, twiddles [960, 2] f64 = cos, sin of 2 pi m / 960;
@@ -73,6 +102,8 @@ def _lib():
         lib.rnnt_forward_spectral.argtypes = [p] * 8 + [i, p]
         lib.rnnt_inverse_spectral.restype = i
         lib.rnnt_inverse_spectral.argtypes = [p] * 4 + [i, p]
+        lib.rnnt_postfilter_synthesis.restype = i
+        lib.rnnt_postfilter_synthesis.argtypes = [p] * 17 + [i, p]
         _LIB = lib
     return _LIB
 
@@ -120,5 +151,41 @@ def inverse_spectral(Y):
     return out
 
 
+def postfilter_synthesis(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
+                         synthesis_mem):
+    """The delayed frame's post-filter and synthesis.  dX, dP: [S, 962] f32
+    re|im; dEx, dEp, dExp, g, lastg, Ex: [S, 32] f32; silence: [S] bool;
+    synthesis_mem: [S, 480] f32.  Returns (out [S, 480], synthesis_mem
+    [S, 480], lastg [S, 32])."""
+    if not dX.is_cuda:
+        return postfilter_synthesis_plain(dX, dP, dEx, dEp, dExp, g, lastg, Ex,
+                                          silence, synthesis_mem)
+    S, dev, f32 = dX.shape[0], dX.device, torch.float32
+    dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence, synthesis_mem = (
+        t.contiguous() for t in (dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
+                                 synthesis_mem))
+    for name, t in (("dX", dX), ("dP", dP)):
+        kernels.require(t, name, (S, 2 * FREQ_SIZE), f32, dev)
+    for name, t in (("dEx", dEx), ("dEp", dEp), ("dExp", dExp), ("g", g),
+                    ("lastg", lastg), ("Ex", Ex)):
+        kernels.require(t, name, (S, NB_BANDS), f32, dev)
+    kernels.require(silence, "silence", (S,), torch.bool, dev)
+    kernels.require(synthesis_mem, "synthesis_mem", (S, FRAME_SIZE), f32, dev)
+    window, tw = kernel_tables(str(dev))
+    band, interp = device_table("band", str(dev)), device_table("interp", str(dev))
+    out = torch.empty((S, FRAME_SIZE), dtype=f32, device=dev)
+    smem_out = torch.empty_like(out)
+    lastg_out = torch.empty((S, NB_BANDS), dtype=f32, device=dev)
+    p = kernels.ptr
+    rc = _lib().rnnt_postfilter_synthesis(
+        p(dX), p(dP), p(dEx), p(dEp), p(dExp), p(g), p(lastg), p(Ex),
+        p(silence), p(synthesis_mem), p(band), p(interp), p(window), p(tw),
+        p(out), p(smem_out), p(lastg_out), S, kernels.stream())
+    kernels.check(rc, "postfilter_synthesis")
+    postfilter_synthesis.launches += 1
+    return out, smem_out, lastg_out
+
+
 forward_spectral.launches = 0
 inverse_spectral.launches = 0
+postfilter_synthesis.launches = 0

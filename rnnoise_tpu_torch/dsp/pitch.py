@@ -9,17 +9,23 @@
   * rnn_remove_doubling's sub-multiple ladder (pitch.c:422-528), unrolled.
 
 Per-lag correlations are one grouped f32 convolution (one group per
-stream); per-stream lookups are ``torch.gather``.  Ranking sits on ~1e-4
-knife edges, so nothing here may run in TF32 (see ``config.resolve_device``).
+stream), or the lag-correlation kernel of ``cuda_xcorr.py`` for the fine
+table; per-stream lookups are ``torch.gather``.  The fused analysis kernel
+(``cuda_analysis.py``) replaces the fine search and the ladder, which its
+plain version runs from here.  Ranking sits on ~1e-4 knife edges, so
+nothing here may run in TF32 (see ``config.resolve_device``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as Fn
 
 from ..config import (PITCH_BUF_SIZE, PITCH_FRAME_SIZE, PITCH_MAX_PERIOD,
                       PITCH_MIN_PERIOD)
+from . import cuda_xcorr
 
 _DS_LEN = PITCH_BUF_SIZE // 2          # 864
 _X_OFF = PITCH_MAX_PERIOD // 2         # 384
@@ -27,6 +33,7 @@ _N2 = PITCH_FRAME_SIZE // 2            # 480
 _MAXP2 = PITCH_MAX_PERIOD // 2         # 384
 _MINP2 = PITCH_MIN_PERIOD // 2         # 30
 _MAX_PITCH = PITCH_MAX_PERIOD - 3 * PITCH_MIN_PERIOD   # 588
+FINE_LAGS = _MAX_PITCH // 2            # 294
 
 _SECOND_CHECK = (0, 0, 3, 2, 3, 2, 5, 2, 3, 2, 3, 2, 5, 2, 3, 2)
 
@@ -130,10 +137,18 @@ def _levinson4(ac):
     return lpc
 
 
-def lag_corr_table(x_lp: torch.Tensor) -> torch.Tensor:
+def lag_corr_table(x_lp: torch.Tensor, xcorr: bool = False,
+                   plain: bool = False) -> torch.Tensor:
     """bx[s, i] = sum_{j<480} x_lp[s, 384+j] * x_lp[s, i+j] for i = 0..384:
     the fine search's cross-correlations (lags 0..293) and remove_doubling's
-    lag-t products (bx[384 - t]) in one table."""
+    lag-t products (bx[384 - t]) in one table.
+
+    ``xcorr`` (RuntimeConfig.xcorr) takes the table from the lag-correlation
+    kernel (its plain version when ``plain``), both summed in f64; otherwise
+    it is one grouped f32 convolution."""
+    if xcorr:
+        return (cuda_xcorr.lag_corr_table_plain if plain
+                else cuda_xcorr.lag_corr_table_kernel)(x_lp)
     return batched_xcorr(x_lp[:, _X_OFF:_X_OFF + _N2], x_lp, _MAXP2 + 1)
 
 
@@ -148,21 +163,20 @@ def coarse_search(x_lp: torch.Tensor):
     return find_best_pitch(xc4, _sliding_syy(y4, len4, nl4))
 
 
-def pitch_search(x_lp: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
-    """x_lp: [S, 864] whitened, decimated pitch buffer; bx its lag table.
-
-    Returns ``pitch`` in 48 kHz samples before the 768-minus flip, as
-    rnn_pitch_search writes it (pitch.c:281-385) for (x_lp+384, x_lp, 960,
-    588)."""
-    nl2 = _MAX_PITCH // 2                            # 294
-    bp0, bp1 = coarse_search(x_lp)
+def fine_search(bx: torch.Tensor, syy: torch.Tensor, bp0: torch.Tensor,
+                bp1: torch.Tensor) -> torch.Tensor:
+    """The 2x-decimated fine stage of rnn_pitch_search (pitch.c:342-384):
+    bx the lag table, syy [S, 294] the ranking's denominators (1 + the lag
+    windows' energies, clamped >= 1), bp0/bp1 the coarse lags.  Returns
+    ``pitch`` in 48 kHz samples before the 768-minus flip."""
+    nl2 = FINE_LAGS
     # fine search, 2x decimated, within 2 lags of 2*best
-    lags = torch.arange(nl2, device=x_lp.device, dtype=torch.int32)[None, :]
+    lags = torch.arange(nl2, device=bx.device, dtype=torch.int32)[None, :]
     cand = ((lags - 2 * bp0[:, None]).abs() <= 2) | \
            ((lags - 2 * bp1[:, None]).abs() <= 2)
     xc2 = torch.where(cand, torch.clamp(bx[:, :nl2], min=-1.0),
                       torch.zeros_like(bx[:, :nl2]))
-    fb0, _ = find_best_pitch(xc2, _sliding_syy(x_lp, _N2, nl2))
+    fb0, _ = find_best_pitch(xc2, syy)
     # pseudo-interpolation (pitch.c:368-384)
     a = _take(xc2, torch.clamp(fb0 - 1, min=0))
     b = _take(xc2, fb0)
@@ -174,27 +188,43 @@ def pitch_search(x_lp: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
     return (2 * fb0 - offset).int()
 
 
+def pitch_search(x_lp: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """x_lp: [S, 864] whitened, decimated pitch buffer; bx its lag table.
+
+    Returns ``pitch`` in 48 kHz samples before the 768-minus flip, as
+    rnn_pitch_search writes it (pitch.c:281-385) for (x_lp+384, x_lp, 960,
+    588)."""
+    bp0, bp1 = coarse_search(x_lp)
+    return fine_search(bx, _sliding_syy(x_lp, _N2, FINE_LAGS), bp0, bp1)
+
+
 def _pitch_gain(xy, xx, yy):
     return xy / torch.sqrt(1.0 + xx * yy)
 
 
 def remove_doubling(x_lp: torch.Tensor, pitch_index: torch.Tensor,
                     prev_period: torch.Tensor, prev_gain: torch.Tensor,
-                    bx: torch.Tensor):
+                    bx: torch.Tensor, yy: Optional[torch.Tensor] = None):
     """Batched rnn_remove_doubling (pitch.c:422-528).
 
     x_lp: [S, 864]; pitch_index, prev_period: [S] int32 in 48 kHz units;
-    prev_gain: [S]; bx: the lag table.  Every candidate's 480-tap product
-    is a lookup in bx.  Returns (new_pitch_index [S] int32, gain [S])."""
+    prev_gain: [S]; bx: the lag table; yy: [S, 385] the energies of the
+    480-sample windows at each table entry (f32 prefix sums of x_lp when
+    None).  Every candidate's 480-tap product and energy is a lookup.
+    Returns (new_pitch_index [S] int32, gain [S])."""
     T0 = torch.clamp(pitch_index // 2, max=_MAXP2 - 1).int()
     prev_period = (prev_period // 2).int()
     dev = x_lp.device
 
     xx = bx[:, _MAXP2]                                # lag 0
     xy = _take(bx, _MAXP2 - T0)
-    # yy_rev[u] = energy of the lag-(384-u) window (prefix sums, >= 0)
-    c = Fn.pad(torch.cumsum(x_lp * x_lp, dim=-1), (1, 0))
-    yy_rev = torch.clamp(c[:, _N2:_DS_LEN + 1] - c[:, :_MAXP2 + 1], min=0.0)
+    if yy is None:
+        # yy_rev[u] = energy of the lag-(384-u) window (prefix sums, >= 0)
+        c = Fn.pad(torch.cumsum(x_lp * x_lp, dim=-1), (1, 0))
+        yy_rev = torch.clamp(c[:, _N2:_DS_LEN + 1] - c[:, :_MAXP2 + 1],
+                             min=0.0)
+    else:
+        yy_rev = yy
     yy = _take(yy_rev, _MAXP2 - T0)
     best_xy, best_yy = xy, yy
     g0 = _pitch_gain(xy, xx, yy)

@@ -55,7 +55,10 @@ def _device_matrix(name: str, windowed: bool, device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_table(name: str, device: str) -> torch.Tensor:
+def device_table(name: str, device: str) -> torch.Tensor:
+    """A constant of ``tables.py`` as an f32 device array: "band" [481, 32]
+    (per-bin energies -> bands), "interp" [32, 481] (band gains -> bins),
+    "dct" [32, 32] and "window" [960]."""
     m = {"band": lambda: tables.band_matrix().T,
          "interp": lambda: tables.interp_matrix().T,
          "dct": lambda: tables.dct_matrix().T,
@@ -87,32 +90,51 @@ def windowed_inverse_transform(Y: torch.Tensor) -> torch.Tensor:
 
 def apply_window(x: torch.Tensor) -> torch.Tensor:
     """x: [..., 960] -> windowed [..., 960]."""
-    return x * _device_table("window", str(x.device))
+    return x * device_table("window", str(x.device))
 
 
 def compute_band_energy(X: torch.Tensor) -> torch.Tensor:
     """X: [..., 962] re|im -> [..., 32] triangular band energies
     (src/denoise.c:90-113)."""
     re, im = X[..., :FREQ_SIZE], X[..., FREQ_SIZE:]
-    return (re * re + im * im) @ _device_table("band", str(X.device))
+    return (re * re + im * im) @ device_table("band", str(X.device))
 
 
 def compute_band_corr(X: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     """Triangular-banded Re{X conj(P)} (src/denoise.c:115-138)."""
     c = X[..., :FREQ_SIZE] * P[..., :FREQ_SIZE] \
         + X[..., FREQ_SIZE:] * P[..., FREQ_SIZE:]
-    return c @ _device_table("band", str(X.device))
+    return c @ device_table("band", str(X.device))
 
 
 def interp_band_gain(band_g: torch.Tensor) -> torch.Tensor:
     """band_g: [..., 32] -> per-bin gain [..., 481]; bins 401..480 come out
     zero (the 20 kHz brick wall, src/denoise.c:140-154)."""
-    return band_g @ _device_table("interp", str(band_g.device))
+    return band_g @ device_table("interp", str(band_g.device))
+
+
+def per_bin(g: torch.Tensor) -> torch.Tensor:
+    """Band gains [S, 32] -> per-bin factors for a re|im spectrum [S, 962]."""
+    gf = interp_band_gain(g)
+    return torch.cat([gf, gf], dim=-1)
+
+
+def pitch_filter(X, P, Ex, Ep, Exp, g):
+    """rnn_pitch_filter (denoise.c:421-455) on re|im spectra."""
+    sq = torch.square
+    r = torch.where(Exp > g, torch.ones_like(Exp),
+                    sq(Exp) * (1.0 - sq(g)) / (0.001 + sq(g) * (1.0 - sq(Exp))))
+    r = torch.sqrt(torch.clamp(r, 0.0, 1.0))
+    r = r * torch.sqrt(Ex / (1e-8 + Ep))
+    X = X + per_bin(r) * P
+    newE = compute_band_energy(X)
+    norm = torch.sqrt(Ex / (1e-8 + newE))
+    return X * per_bin(norm)
 
 
 def dct(x: torch.Tensor) -> torch.Tensor:
     """32-point DCT-II with the reference's legacy sqrt(2/22) scaling."""
-    return x @ _device_table("dct", str(x.device))
+    return x @ device_table("dct", str(x.device))
 
 
 def frame_synthesis(synthesis_mem: torch.Tensor, Y: torch.Tensor,

@@ -22,7 +22,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNEL_SOURCES = ("rnn_step", "spectral")
+KERNEL_SOURCES = ("rnn_step", "spectral", "analysis")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from rnnoise_tpu_torch import kernels
-from rnnoise_tpu_torch.config import resolve_device
+from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device
 from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
+from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_xcorr
 from rnnoise_tpu_torch.dsp import cuda_spectral as spec
+from rnnoise_tpu_torch.dsp import pitch
+from rnnoise_tpu_torch.dsp.transform import compute_band_corr, compute_band_energy
 from rnnoise_tpu_torch.models.rnn import RNNState
 from rnnoise_tpu_torch.nn import cuda_rnn
 from rnnoise_tpu_torch.weights.loader import load_model_file
@@ -86,12 +89,71 @@ def test_spectral_kernels(dev):
     assert _rel(spec.inverse_spectral(kX), spec.inverse_spectral_plain(kX)) <= 1e-4
 
 
-def test_main_path_kernels_vs_plain(dev):
+def test_lag_corr_table_kernel(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    ds = 300 * torch.randn(13, 864, generator=g, device=dev)
+    before = cuda_xcorr.lag_corr_table_kernel.launches
+    got = cuda_xcorr.lag_corr_table_kernel(ds)
+    assert cuda_xcorr.lag_corr_table_kernel.launches == before + 1
+    assert _rel(got, cuda_xcorr.lag_corr_table_plain(ds)) <= 1e-6
+
+
+def test_analysis_kernel(dev):
+    """Inputs from a real decimation and coarse search, so the ladder takes
+    real branches; X and P equal the forward-spectrum kernel's at the
+    resolved period."""
+    S = 16
+    pcm = torch.from_numpy(_signal(np.random.default_rng(3), S, 8)).to(dev).float()
+    pbuf = pcm[-4:].transpose(0, 1).reshape(S, -1)[:, -1728:].contiguous()
+    mem, x = pbuf[:, -960:-480], pbuf[:, -480:]
+    ds = pitch.pitch_downsample(pbuf)
+    bp0, bp1 = pitch.coarse_search(ds)
+    prev_p = torch.randint(60, 700, (S,), device=dev, dtype=torch.int32)
+    prev_g = torch.rand(S, device=dev)
+    args = (mem, x, pbuf, ds, bp0, bp1, prev_p, prev_g)
+    before = cuda_analysis.analysis_spectral.launches
+    kX, kP, kT, kg = cuda_analysis.analysis_spectral(*args)
+    assert cuda_analysis.analysis_spectral.launches == before + 1
+    pX, pP, pT, pg = cuda_analysis.analysis_spectral_plain(*args)
+    same = kT == pT
+    assert int((~same).sum()) <= 2
+    assert float((kg - pg)[same].abs().max()) <= 1e-6
+    assert _rel(kX[same], pX[same]) <= 1e-4 and _rel(kP[same], pP[same]) <= 1e-4
+    fX, fP = spec.forward_spectral(mem, x, pbuf, 1728 - 960 - kT)
+    assert torch.equal(kX, fX) and torch.equal(kP, fP)
+
+
+def test_postfilter_kernel(dev):
+    g = torch.Generator(device=dev).manual_seed(4)
+    S = 9
+    x = 3000 * torch.randn(S, 960, generator=g, device=dev)
+    p = 0.7 * x + 500 * torch.randn(S, 960, generator=g, device=dev)
+    X, P = spec.forward_spectral(x[:, :480], x[:, 480:], torch.cat(
+        [p, p[:, :768]], 1), torch.zeros(S, dtype=torch.int32, device=dev))
+    Ex, Ep = compute_band_energy(X), compute_band_energy(P)
+    Exp = compute_band_corr(X, P) / torch.sqrt(0.001 + Ex * Ep)
+    args = (X, P, Ex, Ep, Exp,
+            0.05 + 0.95 * torch.rand(S, 32, generator=g, device=dev),
+            torch.rand(S, 32, generator=g, device=dev),
+            Ex * (0.5 + 1.5 * torch.rand(S, 1, generator=g, device=dev)),
+            torch.arange(S, device=dev) % 4 == 0,
+            torch.randn(S, 480, generator=g, device=dev))
+    before = spec.postfilter_synthesis.launches
+    k = spec.postfilter_synthesis(*args)
+    assert spec.postfilter_synthesis.launches == before + 1
+    pl = spec.postfilter_synthesis_plain(*args)
+    assert _rel(k[0], pl[0]) <= 1e-4 and _rel(k[1], pl[1]) <= 1e-4
+    assert float((k[2] - pl[2]).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGURATIONS))
+def test_main_path_kernels_vs_plain(dev, config):
     params = load_model_file(MODEL_BLOB, device=dev)
+    rt = CONFIGURATIONS[config]
     S, T = 4, 150
     pcm = torch.from_numpy(_signal(np.random.default_rng(42), S, T)).to(dev)
-    _, ok, vk = process_frames_tm_i16(params, init_state(S, device=dev), pcm)
-    _, op, vp = process_frames_tm_i16(params, init_state(S, device=dev), pcm,
+    _, ok, vk = process_frames_tm_i16(params, init_state(S, device=dev), pcm, rt)
+    _, op, vp = process_frames_tm_i16(params, init_state(S, device=dev), pcm, rt,
                                       plain=True)
     assert int((ok.int() - op.int()).abs().max()) <= 4
     assert float((vk - vp).abs().max()) <= 2e-3

@@ -11,6 +11,7 @@ import torch
 from rnnoise_tpu import denoise as jd
 from rnnoise_tpu.weights.loader import load_model_file as jload
 from rnnoise_tpu_torch import denoise as td
+from rnnoise_tpu_torch.config import CONFIGURATIONS, DEFAULT_RUNTIME
 from rnnoise_tpu_torch.weights.loader import params_from_numpy
 from tests.torch_helpers import (MODEL_BLOB, make_signal,  # noqa: F401
                                  no_jax_compile_cache, state_to_torch,
@@ -29,26 +30,58 @@ def _round_i16(out):
     return np.clip(r, -32768, 32767).astype(np.int16)
 
 
-def test_slice_matches_reference_150_frames(models, xla_cpu_hp_state):
-    """PCM within 4 LSB, VAD within 2e-3, gains (lastg) within 1e-3, final
-    pitch periods exact (the reference's parity rules, docs/PARITY.md).
-    The HP state is rounded as the JAX package rounds it, so the two
-    pipelines start every frame from the same filter state."""
-    jp, tp = models
-    S, T = 4, 150
-    rng = np.random.default_rng(42)
+def _pcm(seed, S=4, T=150):
+    """int16 [S, T, 480] of the parity tests' signal recipe."""
+    rng = np.random.default_rng(seed)
     pcm = np.stack([make_signal(rng, T) for _ in range(S)])
-    pcm = np.clip(np.round(pcm), -32768, 32767).astype(np.int16)
-    pcm = pcm.reshape(S, T, 480)
-    jst, jout, jvad = jax.jit(lambda s, x: jd.process_frames(jp, s, x))(
-        jd.init_state(S), jnp.asarray(pcm.astype(np.float32)))
-    tst, tout, tvad = td.process_frames_tm_i16(
-        tp, td.init_state(S, device="cpu"),
-        torch.from_numpy(pcm.transpose(1, 0, 2).copy()))
-    assert tout.dtype == torch.int16 and tout.shape == (T, S, 480)
-    pcm_err = np.abs(_round_i16(jout).astype(int)
-                     - tout.numpy().transpose(1, 0, 2).astype(int)).max()
-    vad_err = np.abs(np.asarray(jvad) - tvad.numpy().T).max()
+    return np.clip(np.round(pcm), -32768, 32767).astype(np.int16).reshape(S, T, 480)
+
+
+@pytest.fixture(scope="module")
+def reference(models):
+    """rnnoise_tpu.denoise.process_frames over 150 frames of a seed's
+    signal, memoised per (seed, stream): stream None runs all 4 streams at
+    S=4, an index runs that stream alone at S=1.  Returns (state, int16 PCM
+    [S, T, 480], VAD [S, T]) as numpy."""
+    jp, _ = models
+    run = jax.jit(lambda s, x: jd.process_frames(jp, s, x))
+    memo = {}
+
+    def get(seed, stream=None):
+        if (seed, stream) not in memo:
+            pcm = _pcm(seed)
+            if stream is not None:
+                pcm = pcm[stream:stream + 1]
+            st, out, vad = run(jd.init_state(pcm.shape[0]),
+                               jnp.asarray(pcm.astype(np.float32)))
+            memo[seed, stream] = (st, _round_i16(out), np.asarray(vad))
+        return memo[seed, stream]
+    return get
+
+
+def _port(tp, seed, rt):
+    pcm = _pcm(seed)
+    st, out, vad = td.process_frames_tm_i16(
+        tp, td.init_state(pcm.shape[0], device="cpu"),
+        torch.from_numpy(pcm.transpose(1, 0, 2).copy()), rt)
+    assert out.dtype == torch.int16 and out.shape == (150, 4, 480)
+    return st, out.numpy().transpose(1, 0, 2), vad.numpy().T
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGURATIONS))
+def test_slice_matches_reference_150_frames(models, reference, xla_cpu_hp_state,
+                                            config):
+    """PCM within 4 LSB, VAD within 2e-3, gains (lastg) within 1e-3, final
+    pitch periods exact (the reference's parity rules, docs/PARITY.md), for
+    each kernel configuration of the main path (their plain versions here).
+    The HP state is rounded as the JAX package rounds it, so the two
+    pipelines start every frame from the same filter state.  The reference
+    is the JAX package's scan path: its fused kernels run on a TPU only."""
+    _, tp = models
+    jst, jout, jvad = reference(42)
+    tst, tout, tvad = _port(tp, 42, CONFIGURATIONS[config])
+    pcm_err = np.abs(jout.astype(int) - tout.astype(int)).max()
+    vad_err = np.abs(jvad - tvad).max()
     g_err = np.abs(np.asarray(jst.lastg) - tst.lastg.numpy()).max()
     assert pcm_err <= 4, f"PCM diverged: {pcm_err} LSB"
     assert vad_err <= 2e-3, f"VAD diverged: {vad_err}"
@@ -56,6 +89,28 @@ def test_slice_matches_reference_150_frames(models, xla_cpu_hp_state):
     np.testing.assert_array_equal(tst.last_period.numpy(),
                                   np.asarray(jst.last_period))
     np.testing.assert_array_equal(tst.mem_hp.numpy(), np.asarray(jst.mem_hp))
+
+
+def test_serving_rounding_within_reference_batch_spread(models, reference):
+    """The serving configuration with its HP-state rounding ("f64", closer
+    to the exact filter than the JAX package's f32 update) against the JAX
+    package over 150 frames at S=4, seeds 42 and 0-3: its largest PCM and
+    VAD deviation is no larger than the JAX package's own between batch
+    sizes (S=4 against each stream run alone at S=1) on the same signals."""
+    _, tp = models
+    port_pcm = port_vad = ref_pcm = ref_vad = 0
+    for seed in (42, 0, 1, 2, 3):
+        _, jout, jvad = reference(seed)
+        _, tout, tvad = _port(tp, seed, DEFAULT_RUNTIME)
+        port_pcm = max(port_pcm, np.abs(jout.astype(int) - tout.astype(int)).max())
+        port_vad = max(port_vad, np.abs(jvad - tvad).max())
+        one = [reference(seed, s) for s in range(4)]
+        o1 = np.concatenate([o for _, o, _ in one]).astype(int)
+        v1 = np.concatenate([v for _, _, v in one])
+        ref_pcm = max(ref_pcm, np.abs(jout.astype(int) - o1).max())
+        ref_vad = max(ref_vad, np.abs(jvad - v1).max())
+    assert port_pcm <= ref_pcm, (port_pcm, ref_pcm)
+    assert port_vad <= ref_vad, (port_vad, ref_vad)
 
 
 def test_frame_and_chunk_entry_points_agree(models):

@@ -182,3 +182,41 @@ def test_kernel_tables():
     np.testing.assert_allclose(tw.numpy()[:, 0], np.cos(2 * np.pi * m / 960), atol=1e-7)
     np.testing.assert_allclose(tw.numpy()[:, 1], np.sin(2 * np.pi * m / 960), atol=1e-7)
     assert tw[480, 1] == 0 and tw[0, 1] == 0 and tw[240, 0] == 0
+
+
+def test_postfilter_synthesis_plain_matches_pallas_kernel():
+    """The post-filter kernel's plain version against the JAX package's
+    postfilter_synthesis in interpret mode, on the inputs of
+    tests/test_pallas.py's post-filter test (spectra of random signals, one
+    silent stream): out and synthesis_mem within 1e-4 of the largest output,
+    lastg within 2e-5."""
+    from rnnoise_tpu.dsp import pallas_spectral as ps
+    rng = np.random.default_rng(42)
+    S = 8
+    x_t = rng.standard_normal((S, 960)).astype(np.float32) * 3000
+    p_t = 0.7 * x_t + 500 * rng.standard_normal((S, 960)).astype(np.float32)
+    X = jtr.windowed_forward_transform(jnp.asarray(x_t))
+    P = jtr.windowed_forward_transform(jnp.asarray(p_t))
+    Ex, Ep = jtr.compute_band_energy(X), jtr.compute_band_energy(P)
+    Exp = jtr.compute_band_corr(X, P) / jnp.sqrt(0.001 + Ex * Ep)
+    g = rng.uniform(0.05, 1.0, (S, 32)).astype(np.float32)
+    lastg = rng.uniform(0, 1, (S, 32)).astype(np.float32)
+    Ex_cur = np.asarray(Ex) * rng.uniform(0.5, 2.0, (S, 1)).astype(np.float32)
+    silence = np.array([False] * (S - 1) + [True])
+    smem = rng.standard_normal((S, 480)).astype(np.float32)
+    ref = ps.postfilter_synthesis(
+        ps.permute_spectrum(X), ps.permute_spectrum(P), Ex, Ep, Exp,
+        jnp.asarray(g), jnp.asarray(lastg), jnp.asarray(Ex_cur),
+        jnp.asarray(silence), jnp.asarray(smem), interpret=True)
+    before = spec.postfilter_synthesis.launches
+    got = spec.postfilter_synthesis(
+        *(torch.from_numpy(np.array(a)) for a in (
+            _ri(X), _ri(P), Ex, Ep, Exp, g, lastg, Ex_cur, silence, smem)))
+    assert spec.postfilter_synthesis.launches == before
+    out_ref, smem_ref, lastg_ref = (np.asarray(a) for a in ref)
+    scale = np.abs(out_ref).max()
+    np.testing.assert_allclose(got[0].numpy(), out_ref, atol=1e-4 * scale)
+    np.testing.assert_allclose(got[1].numpy(), smem_ref, atol=1e-4 * scale)
+    np.testing.assert_allclose(got[2].numpy(), lastg_ref, atol=2e-5, rtol=0)
+    # the silent stream keeps its lastg and synthesises its unfiltered X
+    np.testing.assert_array_equal(got[2][-1].numpy(), lastg[-1])
