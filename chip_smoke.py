@@ -5,17 +5,19 @@
 
 Phases, in order (each prints as it goes; any failure exits non-zero):
 
-1. build   — compile csrc/*.cu with nvcc for sm_90a, one process per source,
-             all at once.
+1. build   — compile the four csrc/*.cu sources with nvcc for sm_90a, one
+             process per source, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main path's shapes (S=1024, the full rnnoise_synth_v1 model),
+             the main path's shapes (S=1024, the full rnnoise_synth_v1 model;
+             the whole-chunk kernel over T=20 frames from a warm state),
              timed beside the plain version and, where one exists, one
              PyTorch library call.
 3. main    — for each kernel configuration of process_frames_tm_i16
-             (config.CONFIGURATIONS: scan, xcorr, fused): S=1024, T=100, two
-             chained calls with the launch counters zeroed before and read
-             after; then 150 stateful frames at S=64 through the kernels and
-             through the plain versions, held to the parity budget.
+             (config.CONFIGURATIONS: scan, xcorr, fused, mono): S=1024, two
+             chained calls of T=100 frames (T=50 for scan and xcorr, the slow
+             ones) with the launch counters zeroed before and read after;
+             then 150 stateful frames at S=64 through the kernels and through
+             the plain versions, held to the parity budget.
 4. serve   — StreamingEngine with 16 slots on the default configuration:
              ticks, a detach and re-attach, pipelined mode and flush.
 5. timing  — for each configuration the median of chained S=1024, T=100
@@ -41,6 +43,8 @@ INT8_PEAK = 1979e12       # int8 tensor cores, op/s
 FFT_OPS = 2.5 * 960 * np.log2(960)     # flops of one real 960-point FFT
 FFT1024_OPS = 2.5 * 1024 * 10          # flops of one real 1024-point FFT
 S_MAIN, T_MAIN = 1024, 100
+T_SLOW = 50               # phase 3's chunks for the scan and xcorr configurations
+T_MONO = 20               # phase 2's chunk for the whole-chunk kernel
 S_PARITY, T_PARITY = 64, 150
 TIMING_ROUNDS = 5
 SEED = 1234
@@ -119,7 +123,7 @@ def main():
     from rnnoise_tpu_torch.api import RNNoise
     from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device
     from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
-    from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_xcorr, pitch
+    from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr, pitch
     from rnnoise_tpu_torch.dsp import cuda_spectral as spec
     from rnnoise_tpu_torch.dsp.transform import (compute_band_corr,
                                                  compute_band_energy)
@@ -347,15 +351,72 @@ def main():
         bound_ms=post_bound[0], bound_by=post_bound[1],
         library_ms=None)
 
+    # the whole-chunk kernel: T_MONO frames at S=1024 from the state the
+    # fused configuration leaves after 10 frames of generated PCM
+    mono_pcm = signals(S, 10 + T_MONO, dev, SEED + 4, quiet=range(0, S, 16))
+    warm, _, _ = process_frames_tm_i16(params, init_state(S, cfg, dev), mono_pcm[:10],
+                                       CONFIGURATIONS["fused"])
+    chunk20 = mono_pcm[10:].contiguous()
+    warm_pbuf = warm.pitch_buf.clone()
+    k_st, k_out, k_vad = cuda_frame.process_chunk_monokernel(params, warm, chunk20)
+    p_st, p_out, p_vad = cuda_frame.process_chunk_monokernel_plain(params, warm, chunk20)
+    torch.cuda.synchronize()
+    check(torch.equal(warm.pitch_buf, warm_pbuf), "the monokernel wrote its input state")
+    mono_pcm_err = int((k_out.int() - p_out.int()).abs().max())
+    mono_vad_err = float((k_vad - p_vad).abs().max())
+    mono_g_err = float((k_st.lastg - p_st.lastg).abs().max())
+    mono_t0 = int((k_st.last_period != p_st.last_period).sum())
+    log(f"[kernels] process_chunk_monokernel S={S} T={T_MONO}: PCM {mono_pcm_err} LSB "
+        f"(<= 4), VAD {mono_vad_err:.3e} (<= 2e-3), lastg {mono_g_err:.3e} (<= 1e-3), "
+        f"final T0 differs in {mono_t0} of {S} streams (<= 2)")
+    check(mono_pcm_err <= 4 and mono_vad_err <= 2e-3 and mono_g_err <= 1e-3
+          and mono_t0 <= 2, "process_chunk_monokernel disagrees with its plain version")
+    # bytes: the state read once and written once, the int16 PCM in and out,
+    # the VAD out; operations per stream and frame at FFT-level counts: the
+    # analysis row's and the post-filter row's, the coarse correlation as
+    # three real 512-point FFTs, the decimation, autocorrelations and FIR5,
+    # the biquad's recurrence (4 multiply-adds a sample), the band sums (two
+    # bands a bin), both DCTs and the int16 conversions; and the network's
+    # nonzero weights once for each stream-frame that is not silent (VAD 0)
+    st_leaves = [u for t in warm for u in (t if isinstance(t, tuple) else (t,))]
+    mono_bytes = (2 * sum(u.numel() * u.element_size() for u in st_leaves)
+                  + 2 * 2 * chunk20.numel() + 4 * k_vad.numel())
+    frame_ops = (3 * FFT1024_OPS + 6 * 513 + 3 * 864 + 2 * (FFT_OPS + 960 + 962)
+                 + FFT_OPS + 2 * 960 + 481 * 18
+                 + 3 * 2.5 * 512 * 9 + 6 * 257 + 864 * 23
+                 + 480 * 8 + 3 * 481 * 3 + 3 * 2 * 2 * 481 + 2 * 2 * 32 * 32
+                 + 2 * 480)
+    mono_active = int((k_vad != 0).sum())
+    mono_t_ops = (S * T_MONO * frame_ops / F32_PEAK
+                  + 2 * mono_active * (q_nnz / INT8_PEAK + f_nnz / F32_PEAK))
+    mono_ms = gpu_time(lambda: cuda_frame.process_chunk_monokernel(params, warm, chunk20),
+                       reps=5)
+    mono_rec = dict(
+        name="process_chunk_monokernel", route="cuda",
+        source="rnnoise_tpu_torch/csrc/frame.cu",
+        replaces="rnnoise_tpu/dsp/pallas_frame.py:865",
+        max_abs_err=float(max(mono_pcm_err, mono_vad_err, mono_g_err)),
+        ms=mono_ms, ms_per_frame=mono_ms / T_MONO,
+        plain_ms=gpu_time(lambda: cuda_frame.process_chunk_monokernel_plain(
+            params, warm, chunk20), reps=2),
+        bound_ms=1e3 * max(mono_bytes / MEM_BW, mono_t_ops),
+        bound_by="bytes" if mono_bytes / MEM_BW >= mono_t_ops else "operations",
+        library_ms=None)
+    log(f"[kernels] process_chunk_monokernel {mono_ms:.3f} ms per chunk of {T_MONO} "
+        f"frames ({mono_ms / T_MONO:.4f} ms per frame), plain {mono_rec['plain_ms']:.1f} ms, "
+        f"bound {mono_rec['bound_ms']:.4f} ms ({mono_rec['bound_by']})")
+
     counted = ((rnn_rec, cuda_rnn.compute_rnn_step),
                (fwd_rec, spec.forward_spectral), (inv_rec, spec.inverse_spectral),
                (xc_rec, cuda_xcorr.lag_corr_table_kernel),
                (an_rec, cuda_analysis.analysis_spectral),
-               (post_rec, spec.postfilter_synthesis))
+               (post_rec, spec.postfilter_synthesis),
+               (mono_rec, cuda_frame.process_chunk_monokernel))
     path_kernels = {
         "scan": ("rnn_step", "forward_spectral", "inverse_spectral"),
         "xcorr": ("rnn_step", "forward_spectral", "inverse_spectral", "lag_corr_table"),
-        "fused": ("analysis_spectral", "rnn_step", "postfilter_synthesis")}
+        "fused": ("analysis_spectral", "rnn_step", "postfilter_synthesis"),
+        "mono": ("process_chunk_monokernel",)}
     for rec, _ in counted:
         rec["launches"] = 0
         rec["launches_by_path"] = {}
@@ -369,27 +430,32 @@ def main():
     pcm64 = signals(S_PARITY, T_PARITY, dev, SEED + 1, quiet=range(0, S_PARITY, 8))
     states = {}
     for path, rt in CONFIGURATIONS.items():
+        T_path = T_SLOW if path in ("scan", "xcorr") else T_MAIN
         state = init_state(S_MAIN, cfg, dev)
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
         for c in range(2):
             state, out, vad = process_frames_tm_i16(
-                params, state, pcm[c * T_MAIN:(c + 1) * T_MAIN], rt)
+                params, state, pcm[c * T_path:(c + 1) * T_path], rt)
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         states[path] = state
         for rec, fn in counted:
             rec["launches_by_path"][path] = fn.launches
             rec["launches"] += fn.launches
-        log(f"[main:{path}] S={S_MAIN} T={T_MAIN} x2 chained: {main_s:.2f} s, launches "
+        log(f"[main:{path}] S={S_MAIN} T={T_path} x2 chained: {main_s:.2f} s, launches "
             + ", ".join(f"{r['name']}={fn.launches}" for r, fn in counted))
         for rec, fn in counted:
             check((fn.launches > 0) == (rec["name"] in path_kernels[path]),
                   f"{path} path launched {rec['name']} {fn.launches} times")
-        check(tuple(out.shape) == (T_MAIN, S_MAIN, 480) and out.dtype == torch.int16,
+        if path == "mono":
+            check(cuda_frame.process_chunk_monokernel.launches == 2,
+                  "the mono path did not launch its kernel once per chunk")
+            mono_rec["launches_per_frame"] = 2 / (2 * T_path)
+        check(tuple(out.shape) == (T_path, S_MAIN, 480) and out.dtype == torch.int16,
               "main path output shape")
-        check(bool(torch.isfinite(vad).all()) and tuple(vad.shape) == (T_MAIN, S_MAIN),
+        check(bool(torch.isfinite(vad).all()) and tuple(vad.shape) == (T_path, S_MAIN),
               "main path VAD")
         for name, t in zip(state._fields, state):
             for u in (t if isinstance(t, tuple) else (t,)):

@@ -41,6 +41,9 @@ class ModelConfig:
         return 4 * self.gru_size
 
 
+HP_ROUNDINGS = ("f64", "xla_cpu")
+
+
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Numerics options (reference src/vec.h:39-43, src/nnet_arch.h:77) and
@@ -48,6 +51,13 @@ class RuntimeConfig:
 
     * ``quantized``  – int8 weights with quantised activations vs float weights.
     * ``approx_act`` – rational tanh/sigmoid approximations vs torch's own.
+    * ``exact_pitch_rank`` – rank pitch candidates with find_best_pitch's
+      sequential cross-multiplied comparisons (src/pitch.c:44-102) instead
+      of the vectorised ratio ranking; a parity tool, one PyTorch step per
+      lag.  It runs the pitch chain in PyTorch (no analysis kernel).
+    * ``hp_rounding`` – how the HP biquad's [S, 2] state is rounded at each
+      frame's end (``dsp/biquad.py``): "f64" (serving) or "xla_cpu" (as the
+      JAX package's CPU graph rounds it, for holding the port against it).
     * ``analysis``   – the fused pitch-analysis kernel (fine search, doubling
       ladder, window and both forward spectra in one launch;
       ``dsp/cuda_analysis.py``) in place of the pitch chain and the
@@ -59,31 +69,49 @@ class RuntimeConfig:
     * ``xcorr``      – the lag-correlation kernel (``dsp/cuda_xcorr.py``) for
       the pitch chain's lag table, when ``analysis`` is off:
       ``pitch._XCORR_PALLAS``.
+    * ``monokernel`` – the int16 chunk entry point (``process_frames_tm_i16``)
+      runs the whole chunk as one kernel launch (``dsp/cuda_frame.py``), the
+      counterpart of ``denoise.set_monokernel``; it overrides the three
+      switches above.  It has the default numerics, the ratio ranking and
+      the "f64" HP rounding only, and raises on CUDA tensors otherwise.
+      The float entry points run the fused configuration.
 
-    The defaults are the configuration that keeps the most streams in real
-    time on an H100 (PERF.md: "fused", against "scan" and "xcorr"), unlike
-    the JAX package's, which were measured on a TPU.  On CUDA only the
-    default numerics (quantized, approx_act) have a kernel.
+    The fields' defaults are the fused configuration.  ``DEFAULT_RUNTIME``,
+    which the entry points take when given none, is the configuration that
+    keeps the most streams in real time on an H100 ("mono", PERF.md), as
+    the JAX package's default is the one measured best on a TPU.  The
+    kernels have the default numerics only; the others run as plain
+    PyTorch on any device.
     """
 
     quantized: bool = True
     approx_act: bool = True
+    exact_pitch_rank: bool = False
+    hp_rounding: str = "f64"
     analysis: bool = True
     postfilter: bool = True
     xcorr: bool = False
+    monokernel: bool = False
+
+    def __post_init__(self):
+        if self.hp_rounding not in HP_ROUNDINGS:
+            raise ValueError(f"hp_rounding must be one of {HP_ROUNDINGS}, "
+                             f"not {self.hp_rounding!r}")
 
 
 # The kernel configurations of the main path: "scan" runs the RNN step and
 # the forward and inverse spectra as kernels, "xcorr" adds the lag table,
-# "fused" runs the analysis, the RNN step and the post-filter.
+# "fused" runs the analysis, the RNN step and the post-filter, "mono" runs
+# the whole chunk in one kernel.
 CONFIGURATIONS = {
     "scan": RuntimeConfig(analysis=False, postfilter=False),
     "xcorr": RuntimeConfig(analysis=False, postfilter=False, xcorr=True),
     "fused": RuntimeConfig(),
+    "mono": RuntimeConfig(monokernel=True),
 }
 
 DEFAULT_MODEL = ModelConfig()
-DEFAULT_RUNTIME = RuntimeConfig()
+DEFAULT_RUNTIME = CONFIGURATIONS["mono"]
 
 
 def resolve_device(device) -> torch.device:

@@ -37,16 +37,17 @@
 // output (nothing after them decides on a threshold but the int16 rounding),
 // so they sum in f32 with FMA and agree with their plain versions to a few
 // 1e-6 of each row's largest magnitude.
+//
+// The post-filter itself is postfilter_body.cuh, which frame.cu shares.
 
 #include <stdint.h>
 
-#include "spectral_common.cuh"
+#include "postfilter_body.cuh"
 
 namespace {
 
 using namespace rnnt;
 
-constexpr int NB = 32;             // bands
 constexpr int GF = 4;              // streams per block, forward
 constexpr int GI = 4;              // streams per block, inverse
 constexpr int FWD_THREADS = 512;   // 256 even bins | 256 odd bins
@@ -127,21 +128,6 @@ inverse_kernel(const float* __restrict__ Y, const float* __restrict__ window,
   }
 }
 
-// sum over bands b of m[b * NBIN] * v[b], in band order, f32 FMA: bin k of
-// the interpolation of band values v, with m = interp + k (neighbouring
-// threads read neighbouring bins)
-__device__ __forceinline__ float band_dot(const float* __restrict__ m,
-                                          const float* v) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int b = 0; b < NB; ++b) acc = fmaf(m[b * NBIN], v[b], acc);
-  return acc;
-}
-
-// One block per stream.  The band arithmetic uses the _rn intrinsics, so it
-// rounds as the plain version's elementwise operators do; the per-bin
-// interpolations (interp [32, 481]) and the band energies (band [481, 32])
-// are f32 dot products in their own order.
 __global__ void __launch_bounds__(POST_THREADS)
 postfilter_kernel(const float* __restrict__ dX, const float* __restrict__ dP,
                   const float* __restrict__ dEx, const float* __restrict__ dEp,
@@ -153,78 +139,15 @@ postfilter_kernel(const float* __restrict__ dX, const float* __restrict__ dP,
                   const float* __restrict__ window, const double2* __restrict__ tw,
                   float* __restrict__ out, float* __restrict__ smem_out,
                   float* __restrict__ lastg_out) {
-  __shared__ float2 s_tw[WS];
-  __shared__ float4 s_y[1][MI];
-  __shared__ float s_re[NBIN], s_im[NBIN], s_e2[NBIN];
-  __shared__ float s_r[NB], s_gc[NB], s_norm[NB];
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const float* X = dX + (size_t)s * 2 * NBIN;
-  const float* P = dP + (size_t)s * 2 * NBIN;
-  const bool silent = silence[s] != 0;
-  load_twiddles_f32(s_tw, tw);
-  if (tid < NB) {
-    const int i = s * NB + tid;
-    const float ex = dEx[i], ep = dEp[i], exp_ = dExp[i], gb = g[i];
-    // comb strength r (denoise.c:429-441)
-    const float e2 = __fmul_rn(exp_, exp_), g2 = __fmul_rn(gb, gb);
-    float r = exp_ > gb ? 1.0f
-        : __fdiv_rn(__fmul_rn(e2, __fsub_rn(1.0f, g2)),
-                    __fadd_rn((float)0.001, __fmul_rn(g2, __fsub_rn(1.0f, e2))));
-    r = __fsqrt_rn(fminf(fmaxf(r, 0.0f), 1.0f));
-    s_r[tid] = __fmul_rn(r, __fsqrt_rn(__fdiv_rn(ex, __fadd_rn((float)1e-8, ep))));
-    // gain cap and the energy-compensated lastg (denoise.c:479-489)
-    const float gc = fmaxf(gb, __fmul_rn((float)0.6, lastg[i]));
-    s_gc[tid] = gc;
-    const float lg = __fdiv_rn(__fmul_rn(gc, __fadd_rn(ex, (float)1e-3)),
-                               __fadd_rn(Ex[i], (float)1e-3));
-    lastg_out[i] = silent ? lastg[i] : fminf(lg, 1.0f);
-  }
-  __syncthreads();
-  for (int k = tid; k < NBIN; k += blockDim.x) {
-    const float rf = band_dot(interp + k, s_r);
-    const float yr = __fadd_rn(X[k], __fmul_rn(rf, P[k]));
-    const float yi = __fadd_rn(X[NBIN + k], __fmul_rn(rf, P[NBIN + k]));
-    s_re[k] = yr;
-    s_im[k] = yi;
-    s_e2[k] = __fadd_rn(__fmul_rn(yr, yr), __fmul_rn(yi, yi));
-  }
-  __syncthreads();
-  // band energies of the filtered spectrum: one warp per band
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int b = warp; b < NB; b += nwarps) {
-    float acc = 0.0f;
-    for (int k = lane; k < NBIN; k += 32)
-      acc = fmaf(band[k * NB + b], s_e2[k], acc);
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      const float ex = dEx[s * NB + b];
-      s_norm[b] = __fsqrt_rn(__fdiv_rn(ex, __fadd_rn((float)1e-8, acc)));
-    }
-  }
-  __syncthreads();
-  for (int k = tid; k < NBIN; k += blockDim.x) {
-    if (silent) {
-      s_re[k] = X[k];
-      s_im[k] = X[NBIN + k];
-    } else {
-      const float nf = band_dot(interp + k, s_norm);
-      const float gf = band_dot(interp + k, s_gc);
-      s_re[k] = __fmul_rn(__fmul_rn(s_re[k], nf), gf);
-      s_im[k] = __fmul_rn(__fmul_rn(s_im[k], nf), gf);
-    }
-  }
-  __syncthreads();
-  for (int m = tid; m < MI; m += blockDim.x) s_y[0][m] = inv_pair(s_re, s_im, m);
-  __syncthreads();
-
-  const int n = tid;
-  if (n >= FS) return;
-  float e[1], o[1];
-  inv_sums<1>(s_y, s_tw, n, e, o);
-  const size_t row = (size_t)s * FS;
-  out[row + n] = __fadd_rn(__fmul_rn(window[n], __fadd_rn(e[0], o[0])), smem[row + n]);
-  smem_out[row + n] = __fmul_rn(window[n + FS], __fsub_rn(e[0], o[0]));
+  __shared__ PostSmem sm;
+  const int s = blockIdx.x;
+  const size_t b = (size_t)s * NB, row = (size_t)s * FS;
+  float* o = out + row;
+  postfilter_body(sm, dX + (size_t)s * 2 * NBIN, dP + (size_t)s * 2 * NBIN,
+                  dEx + b, dEp + b, dExp + b, g + b, lastg + b, Ex + b,
+                  silence[s] != 0, smem + row, band, interp, window, tw,
+                  [o](int n, float v) { o[n] = v; }, smem_out + row,
+                  lastg_out + b);
 }
 
 }  // namespace

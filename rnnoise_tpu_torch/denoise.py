@@ -14,9 +14,10 @@ On CUDA tensors kernels carry the frame, in one of the configurations of
 the RNN step and the inverse spectrum ("scan"; ``dsp/cuda_spectral.py``,
 ``nn/cuda_rnn.py``), plus the lag table ("xcorr"; ``dsp/cuda_xcorr.py``), or
 the fused pitch analysis, the RNN step and the fused post-filter with
-synthesis ("fused"; ``dsp/cuda_analysis.py``).  ``plain=True`` runs their
-plain PyTorch versions instead, to hold the kernels against them.
-Everything else is plain PyTorch on either device.
+synthesis ("fused"; ``dsp/cuda_analysis.py``); or the int16 chunk entry
+point runs the whole chunk as one kernel ("mono"; ``dsp/cuda_frame.py``).
+``plain=True`` runs their plain PyTorch versions instead, to hold the
+kernels against them.  Everything else is plain PyTorch on either device.
 """
 
 from __future__ import annotations
@@ -120,14 +121,22 @@ def _log_energy_follower(Ex: torch.Tensor) -> torch.Tensor:
 
 def compute_frame_features(state: DenoiseState, x: torch.Tensor,
                            rt: RuntimeConfig = DEFAULT_RUNTIME,
-                           plain: bool = False):
+                           plain: bool = False, training: bool = False,
+                           lowpass_bin: Optional[torch.Tensor] = None):
     """x: [S, FRAME_SIZE] HP-filtered PCM.  Returns the updated state
     (analysis mem, pitch buffer, pitch continuity) and this frame's
-    features — the inference branch of rnn_compute_frame_features
-    (denoise.c:347-398)."""
+    features — rnn_compute_frame_features (denoise.c:347-398).
+
+    ``training`` replicates the -DTRAINING build (denoise.c:340-343,
+    389-397): the silence gate becomes E < 0.1 without clearing features;
+    ``lowpass_bin`` [S] zeroes the bins of X at and above it (the
+    data-augmentation hook).  Either, or ``rt.exact_pitch_rank``, runs the
+    pitch chain in PyTorch with the forward-spectrum kernel, as the JAX
+    package does."""
     pitch_buf = torch.cat([state.pitch_buf[:, FRAME_SIZE:], x], dim=-1)
     ds = pitch_mod.pitch_downsample(pitch_buf)
-    if rt.analysis:
+    if rt.analysis and not (rt.exact_pitch_rank or training
+                            or lowpass_bin is not None):
         # fine search, doubling ladder, window and both forward spectra in
         # one kernel; only the coarse search stays outside
         bp0, bp1 = pitch_mod.coarse_search(ds)
@@ -138,7 +147,7 @@ def compute_frame_features(state: DenoiseState, x: torch.Tensor,
     else:
         # shared by fine search + doubling
         bx = pitch_mod.lag_corr_table(ds, rt.xcorr, plain)
-        pitch = pitch_mod.pitch_search(ds, bx)
+        pitch = pitch_mod.pitch_search(ds, bx, rt.exact_pitch_rank)
         T0, gain = pitch_mod.remove_doubling(ds, PITCH_MAX_PERIOD - pitch,
                                              state.last_period,
                                              state.last_gain, bx)
@@ -147,21 +156,28 @@ def compute_frame_features(state: DenoiseState, x: torch.Tensor,
         forward = (cuda_spectral.forward_spectral_plain if plain
                    else cuda_spectral.forward_spectral)
         X, P = forward(state.analysis_mem, x, pitch_buf, start)
+        if lowpass_bin is not None:
+            bins = torch.arange(FREQ_SIZE, device=X.device).repeat(2)
+            X = torch.where(bins[None, :] < lowpass_bin[:, None], X,
+                            torch.zeros_like(X))
     Ex = compute_band_energy(X)
     Ep = compute_band_energy(P)
     Exp = compute_band_corr(X, P) / torch.sqrt(0.001 + Ex * Ep)
 
     Ly = _log_energy_follower(Ex)
-    E = Ex.sum(dim=-1)
+    E = Ex.double().sum(dim=-1).float()       # f64, as for the band sums
     f_bfcc = dct(Ly)
     f_bfcc = torch.cat([f_bfcc[:, :1] + -12.0, f_bfcc[:, 1:2] + -4.0,
                         f_bfcc[:, 2:]], dim=-1)
     f_corr = dct(Exp)
     f_pitch = 0.01 * (T0.float() - 300.0)
     features = torch.cat([f_bfcc, f_corr, f_pitch[:, None]], dim=-1)
-    silence = E < SILENCE_THRESHOLD
-    features = torch.where(silence[:, None], torch.zeros_like(features),
-                           features)
+    if training:
+        silence = E < 0.1
+    else:
+        silence = E < SILENCE_THRESHOLD
+        features = torch.where(silence[:, None], torch.zeros_like(features),
+                               features)
     new_state = state._replace(analysis_mem=x, pitch_buf=pitch_buf,
                                last_period=T0, last_gain=gain)
     return new_state, FrameFeatures(X, P, Ex, Ep, Exp, features, silence)
@@ -176,7 +192,7 @@ def process_frame(params: Optional[ModelParams], state: DenoiseState,
     out_pcm [S, FRAME_SIZE], vad [S]).  ``params=None`` runs the DSP path
     with unity gains (no model)."""
     x, mem_hp = biquad_mod.biquad(pcm, state.mem_hp, tables.BIQUAD_HP_B,
-                                  tables.BIQUAD_HP_A)
+                                  tables.BIQUAD_HP_A, rt.hp_rounding)
     return _process_frame_hp(params, state._replace(mem_hp=mem_hp), x, rt,
                              plain)
 
@@ -221,7 +237,7 @@ def process_frames_tm(params: Optional[ModelParams], state: DenoiseState,
     whole chunk; the rest of the frame steps frame by frame."""
     x_hp, mem_hp = biquad_mod.biquad_frames(pcm, state.mem_hp,
                                             tables.BIQUAD_HP_B,
-                                            tables.BIQUAD_HP_A)
+                                            tables.BIQUAD_HP_A, rt.hp_rounding)
     state = state._replace(mem_hp=mem_hp)
     outs, vads = [], []
     for x in x_hp:
@@ -247,7 +263,14 @@ def process_frames_tm_i16(params: Optional[ModelParams], state: DenoiseState,
                           plain: bool = False):
     """Int16 at the boundary: pcm [T, S, FRAME_SIZE] int16 -> (state,
     out int16, vad).  Rounding is the native ring's float path: half away
-    from zero, clipped to int16 (streamio.cc Ring::push_f32)."""
+    from zero, clipped to int16 (streamio.cc Ring::push_f32).  With
+    ``rt.monokernel`` the chunk is one launch of the whole-chunk kernel
+    (its plain version on CPU tensors or with ``plain``)."""
+    if rt.monokernel:
+        from .dsp import cuda_frame
+        run = (cuda_frame.process_chunk_monokernel_plain if plain
+               else cuda_frame.process_chunk_monokernel)
+        return run(params, state, pcm, rt)
     state, out, vad = process_frames_tm(params, state, pcm.float(), rt, plain)
     rounded = torch.trunc(torch.where(out > 0, out + 0.5, out - 0.5))
     out_i16 = torch.clamp(rounded, -32768.0, 32767.0).to(torch.int16)

@@ -9,7 +9,7 @@ so it unrolls in closed form:
     s_{N-1} = A^N @ s_{-1}  +  sum_j (A^{N-1-j} B) x_j
 
 with every A-power precomputed in float64, so a frame is one
-lower-triangular [N, N] f32 matmul plus two tiny state terms.
+lower-triangular [N, N] matmul plus two tiny state terms.
 """
 
 from __future__ import annotations
@@ -39,36 +39,27 @@ def _biquad_kernels(b: tuple, a: tuple, N: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _device_kernels(b: tuple, a: tuple, N: int, device: str):
-    """(K^T, rowA^T, SA^T, SB) on ``device``: K^T in f32, the state terms
-    in f64 (as exact f64 powers) or f32, after the state rounding mode."""
+def _device_kernels(b: tuple, a: tuple, N: int, device: str, rounding: str):
+    """(K^T, rowA^T, SA^T, SB) on ``device``, in f64 (as the exact f64
+    powers) for the "f64" rounding and in f32 for "xla_cpu"."""
     K, rowA, SA, SB = _biquad_kernels(b, a, N)
-    dt = np.float64 if _STATE_ROUNDING == "f64" else np.float32
-    return tuple(torch.from_numpy(np.ascontiguousarray(m, dtype=t)).to(device)
-                 for m, t in ((K.T, np.float32), (rowA.T, dt), (SA.T, dt),
-                              (SB, dt)))
+    dt = np.float64 if rounding == "f64" else np.float32
+    return tuple(torch.from_numpy(np.ascontiguousarray(m, dtype=dt)).to(device)
+                 for m in (K.T, rowA.T, SA.T, SB))
 
 
-# How the [S, 2] filter state is updated at each frame's end.  "f64": the
-# state terms in float64 from the exact f64 A-powers, rounded once to the f32
-# state (the reference keeps double product accumulators,
-# src/denoise.c:409-419).  "xla_cpu": rounded as the JAX package's compiled
-# CPU graph rounds its f32 dots (the 2-term products as one FMA, the frame's
-# input products as four FMA chains), which makes the two packages' states
-# bit-identical.  The state map A^N of this near-unstable DC blocker has
-# norm ~290, so a 1-ulp difference in the state reaches output LSBs within
-# frames: comparing the rest of the pipeline with the JAX package to its
-# budget needs "xla_cpu"; serving uses "f64".
-_STATE_ROUNDING = "f64"          # "f64" | "xla_cpu"
-
-
-def set_state_rounding(mode: str) -> str:
-    """Select the state update; returns the mode it replaces."""
-    global _STATE_ROUNDING
-    assert mode in ("f64", "xla_cpu")
-    old, _STATE_ROUNDING = _STATE_ROUNDING, mode
-    _device_kernels.cache_clear()
-    return old
+# How a frame is rounded (RuntimeConfig.hp_rounding).  "f64": the input
+# products (x @ K^T) and the state terms in float64 from the exact f64
+# A-powers, each rounded once to f32 (the reference keeps double product
+# accumulators, src/denoise.c:409-419); the monokernel (csrc/frame.cu) sums
+# the same terms in f64 and so makes the same roundings.  "xla_cpu": rounded
+# as the JAX package's compiled CPU graph rounds its f32 dots (the input
+# products as an f32 matmul, the 2-term state products as one FMA, the
+# frame's state input as four FMA chains), which makes the two packages'
+# states bit-identical.  The state map A^N of this near-unstable DC blocker
+# has norm ~290, so a 1-ulp difference in the state reaches output LSBs
+# within frames: comparing the rest of the pipeline with the JAX package to
+# its budget needs "xla_cpu"; serving uses "f64".
 
 
 def _dot2(mem: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -90,27 +81,30 @@ def _dot_lanes4(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return (acc[:, 0] + acc[:, 1]) + (acc[:, 2] + acc[:, 3])
 
 
-def biquad_frames(x: torch.Tensor, mem: torch.Tensor, b, a):
+def biquad_frames(x: torch.Tensor, mem: torch.Tensor, b, a,
+                  rounding: str = "f64"):
     """x: [T, S, N] consecutive frames, mem: [S, 2] -> (y [T, S, N],
     new_mem [S, 2]).
 
     The input products of all T frames are summed together; only the 2-dim
-    state chains frame to frame, updated as ``_STATE_ROUNDING`` says."""
+    state chains frame to frame, rounded as ``rounding`` ("f64" or
+    "xla_cpu") says."""
     b = tuple(float(v) for v in np.asarray(b, dtype=np.float64))
     a = tuple(float(v) for v in np.asarray(a, dtype=np.float64))
     T, S, N = x.shape
-    KT, rowAT, SAT, SB = _device_kernels(b, a, N, str(x.device))
+    KT, rowAT, SAT, SB = _device_kernels(b, a, N, str(x.device), rounding)
     x = x.float()
     flat = x.reshape(T * S, N)
-    xk = (flat @ KT).reshape(T, S, N)
     ys = []
-    if _STATE_ROUNDING == "f64":
+    if rounding == "f64":
+        xk = (flat.double() @ KT).float().reshape(T, S, N)
         v = (flat.double() @ SB).reshape(T, S, 2)
         for t in range(T):
             m = mem.double()
             ys.append(x[t] + xk[t] + (m @ rowAT).float())
             mem = (m @ SAT + v[t]).float()
     else:
+        xk = (flat @ KT).reshape(T, S, N)
         v = _dot_lanes4(flat, SB).reshape(T, S, 2)
         for t in range(T):
             ys.append(x[t] + xk[t] + _dot2(mem, rowAT))
@@ -118,7 +112,7 @@ def biquad_frames(x: torch.Tensor, mem: torch.Tensor, b, a):
     return torch.stack(ys), mem
 
 
-def biquad(x: torch.Tensor, mem: torch.Tensor, b, a):
+def biquad(x: torch.Tensor, mem: torch.Tensor, b, a, rounding: str = "f64"):
     """x: [S, N], mem: [S, 2]  ->  (y[S, N], new_mem[S, 2])."""
-    y, mem = biquad_frames(x[None], mem, b, a)
+    y, mem = biquad_frames(x[None], mem, b, a, rounding)
     return y[0], mem

@@ -21,30 +21,21 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as Fn
 
 from .. import kernels
 from ..config import (FRAME_SIZE, FREQ_SIZE, PITCH_BUF_SIZE, PITCH_MAX_PERIOD,
                       WINDOW_SIZE)
 from . import cuda_spectral, pitch
-from .cuda_xcorr import CORR_LEN, DS_LEN, lag_corr_table_plain
+from .cuda_xcorr import CORR_LEN, DS_LEN, N_LAGS, lag_corr_table_plain
 
 N_FINE = pitch.FINE_LAGS      # 294
-
-
-def lag_energy_plain(ds: torch.Tensor) -> torch.Tensor:
-    """yy[s, i] = sum_{j<480} ds[s, i + j]^2 for i = 0..384, in f64, rounded
-    to f32."""
-    d2 = ds.double().square()[:, None, :]
-    ones = torch.ones((1, 1, CORR_LEN), dtype=torch.float64, device=ds.device)
-    return Fn.conv1d(d2, ones)[:, 0].float()
 
 
 def analysis_spectral_plain(mem, x, pitch_buf, ds, bp0, bp1, prev_period,
                             prev_gain):
     """Plain version of :func:`analysis_spectral`."""
     bx = lag_corr_table_plain(ds)
-    yy = lag_energy_plain(ds)
+    yy = pitch.window_energy(ds, CORR_LEN, N_LAGS)    # f64, rounded once
     syy = torch.clamp(1.0 + yy[:, :N_FINE], min=1.0)
     fine = pitch.fine_search(bx, syy, bp0, bp1)
     T0, gain = pitch.remove_doubling(ds, PITCH_MAX_PERIOD - fine, prev_period,
@@ -94,11 +85,10 @@ def analysis_spectral(mem, x, pitch_buf, ds, bp0, bp1, prev_period, prev_gain):
     T0 = torch.empty((S,), dtype=i32, device=dev)
     gain = torch.empty((S,), dtype=f32, device=dev)
     p = kernels.ptr
-    rc = _lib().rnnt_analysis_spectral(
+    kernels.launch(
+        _lib().rnnt_analysis_spectral, "analysis_spectral", dev,
         p(mem), p(x), p(pitch_buf), p(ds), p(bp0), p(bp1), p(prev_period),
-        p(prev_gain), p(window), p(tw), p(X), p(P), p(T0), p(gain), S,
-        kernels.stream())
-    kernels.check(rc, "analysis_spectral")
+        p(prev_gain), p(window), p(tw), p(X), p(P), p(T0), p(gain), S)
     analysis_spectral.launches += 1
     return X, P, T0, gain
 

@@ -125,10 +125,9 @@ def forward_spectral(mem, x, pitch_buf, start):
     X = torch.empty((S, 2 * FREQ_SIZE), dtype=f32, device=dev)
     P = torch.empty_like(X)
     p = kernels.ptr
-    rc = _lib().rnnt_forward_spectral(p(mem), p(x), p(pitch_buf), p(start),
-                                      p(window), p(tw), p(X), p(P), S,
-                                      kernels.stream())
-    kernels.check(rc, "forward_spectral")
+    kernels.launch(_lib().rnnt_forward_spectral, "forward_spectral", dev,
+                   p(mem), p(x), p(pitch_buf), p(start), p(window), p(tw),
+                   p(X), p(P), S)
     forward_spectral.launches += 1
     return X, P
 
@@ -144,9 +143,8 @@ def inverse_spectral(Y):
     window, tw = kernel_tables(str(dev))
     out = torch.empty((S, WINDOW_SIZE), dtype=torch.float32, device=dev)
     p = kernels.ptr
-    rc = _lib().rnnt_inverse_spectral(p(Y), p(window), p(tw), p(out), S,
-                                      kernels.stream())
-    kernels.check(rc, "inverse_spectral")
+    kernels.launch(_lib().rnnt_inverse_spectral, "inverse_spectral", dev,
+                   p(Y), p(window), p(tw), p(out), S)
     inverse_spectral.launches += 1
     return out
 
@@ -177,11 +175,11 @@ def postfilter_synthesis(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
     smem_out = torch.empty_like(out)
     lastg_out = torch.empty((S, NB_BANDS), dtype=f32, device=dev)
     p = kernels.ptr
-    rc = _lib().rnnt_postfilter_synthesis(
+    kernels.launch(
+        _lib().rnnt_postfilter_synthesis, "postfilter_synthesis", dev,
         p(dX), p(dP), p(dEx), p(dEp), p(dExp), p(g), p(lastg), p(Ex),
         p(silence), p(synthesis_mem), p(band), p(interp), p(window), p(tw),
-        p(out), p(smem_out), p(lastg_out), S, kernels.stream())
-    kernels.check(rc, "postfilter_synthesis")
+        p(out), p(smem_out), p(lastg_out), S)
     postfilter_synthesis.launches += 1
     return out, smem_out, lastg_out
 

@@ -56,9 +56,8 @@ def lag_corr_table_kernel(ds: torch.Tensor) -> torch.Tensor:
     ds = ds.contiguous()
     kernels.require(ds, "ds", (S, DS_LEN), torch.float32, dev)
     bx = torch.empty((S, N_LAGS), dtype=torch.float32, device=dev)
-    rc = _lib().rnnt_lag_corr_table(kernels.ptr(ds), kernels.ptr(bx), S,
-                                    kernels.stream())
-    kernels.check(rc, "lag_corr_table")
+    kernels.launch(_lib().rnnt_lag_corr_table, "lag_corr_table", dev,
+                   kernels.ptr(ds), kernels.ptr(bx), S)
     lag_corr_table_kernel.launches += 1
     return bx
 

@@ -8,9 +8,14 @@
     ranking                         (pitch.c:44-102, 281-385)
   * rnn_remove_doubling's sub-multiple ladder (pitch.c:422-528), unrolled.
 
-Per-lag correlations are one grouped f32 convolution (one group per
-stream), or the lag-correlation kernel of ``cuda_xcorr.py`` for the fine
-table; per-stream lookups are ``torch.gather``.  The fused analysis kernel
+Per-lag correlations are grouped convolutions (one group per stream), or
+the lag-correlation kernel of ``cuda_xcorr.py`` for the fine table;
+per-stream lookups are ``torch.gather``.  The sums that decide a period
+(the autocorrelations of the LPC fit, the coarse correlations, every
+window energy, and the fine lag table where a kernel or its plain version
+computes it) add products of two floats, which are exact in f64, in f64
+and round once to f32, so the whole-chunk kernel (``csrc/frame.cu``), which
+sums them in its own order, makes the same decisions.  The fused analysis kernel
 (``cuda_analysis.py``) replaces the fine search and the ladder, which its
 plain version runs from here.  Ranking sits on ~1e-4 knife edges, so
 nothing here may run in TF32 (see ``config.resolve_device``).
@@ -47,12 +52,18 @@ def batched_xcorr(x: torch.Tensor, y: torch.Tensor, nlags: int) -> torch.Tensor:
     return Fn.conv1d(y[None, :, :nlags + K - 1], x[:, None, :], groups=S)[0]
 
 
+def window_energy(y: torch.Tensor, length: int, nlags: int) -> torch.Tensor:
+    """e[s, i] = sum_{j<length} y[s, i+j]^2 for i < nlags, summed in f64 and
+    rounded once to f32."""
+    d2 = y.double().square()[:, None, :length + nlags - 1]
+    ones = torch.ones((1, 1, length), dtype=torch.float64, device=y.device)
+    return Fn.conv1d(d2, ones)[:, 0].float()
+
+
 def _sliding_syy(y: torch.Tensor, length: int, nlags: int) -> torch.Tensor:
     """Syy[s, i] = 1 + sum_{j<length} y[s, i+j]^2, clamped >= 1
     (find_best_pitch's running denominator, pitch.c:67-100)."""
-    c = Fn.pad(torch.cumsum(y * y, dim=-1), (1, 0))
-    syy = 1.0 + c[:, length:length + nlags] - c[:, :nlags]
-    return torch.clamp(syy, min=1.0)
+    return torch.clamp(1.0 + window_energy(y, length, nlags), min=1.0)
 
 
 def find_best_pitch(xcorr: torch.Tensor, syy: torch.Tensor):
@@ -69,6 +80,40 @@ def find_best_pitch(xcorr: torch.Tensor, syy: torch.Tensor):
     count = mask.sum(dim=-1)
     i0 = torch.where(count >= 1, i0, 0)
     i1 = torch.where(count >= 2, i1, torch.where(count == 1, 0, 1))
+    return i0.int(), i1.int()
+
+
+def find_best_pitch_exact(xcorr: torch.Tensor, y: torch.Tensor, length: int):
+    """find_best_pitch as the reference runs it (pitch.c:44-102, float
+    build): the running energy ``Syy = max(1, (Syy + y[i+len]^2) - y[i]^2)``
+    from a left-to-right f32 sum, and the cross-multiplied top-2 comparisons
+    ``num * best_den > best_num * Syy`` (strict, so earlier lags win ties)
+    instead of the ratio ranking, whose division rounds differently in
+    near-ties.  One step per lag: a parity tool, not the serving path
+    (RuntimeConfig.exact_pitch_rank)."""
+    nlags = xcorr.shape[-1]
+    y2 = y * y
+    syy = torch.ones_like(y[:, 0])
+    for j in range(length):
+        syy = syy + y2[:, j]
+    num0 = torch.full_like(syy, -1.0)
+    den0 = torch.zeros_like(syy)
+    i0 = torch.zeros_like(syy, dtype=torch.int32)
+    num1, den1, i1 = num0, den0, torch.ones_like(i0)
+    for i in range(nlags):
+        xc = xcorr[:, i]
+        num = torch.square(xc * 1e-12)
+        beats1 = (xc > 0) & (num * den1 > num1 * syy)
+        # the slot-0 comparison only happens inside the slot-1 branch
+        # (pitch.c:83-97)
+        beats0 = beats1 & (num * den0 > num0 * syy)
+        num1 = torch.where(beats0, num0, torch.where(beats1, num, num1))
+        den1 = torch.where(beats0, den0, torch.where(beats1, syy, den1))
+        i1 = torch.where(beats0, i0, torch.where(beats1, i, i1))
+        num0 = torch.where(beats0, num, num0)
+        den0 = torch.where(beats0, syy, den0)
+        i0 = torch.where(beats0, i, i0)
+        syy = torch.clamp((syy + y2[:, i + length]) - y2[:, i], min=1.0)
     return i0.int(), i1.int()
 
 
@@ -91,7 +136,8 @@ def pitch_downsample(pitch_buf: torch.Tensor) -> torch.Tensor:
                       x_lp[:, 1:]], dim=-1)
 
     n = _DS_LEN
-    ac = [(x_lp[:, :n - k] * x_lp[:, k:]).sum(dim=-1) for k in range(5)]
+    xd = x_lp.double()
+    ac = [(xd[:, :n - k] * xd[:, k:]).sum(dim=-1).float() for k in range(5)]
     ac[0] = ac[0] * 1.0001
     for i in range(1, 5):
         ac[i] = ac[i] - ac[i] * (0.008 * i) ** 2     # lag windowing
@@ -152,22 +198,28 @@ def lag_corr_table(x_lp: torch.Tensor, xcorr: bool = False,
     return batched_xcorr(x_lp[:, _X_OFF:_X_OFF + _N2], x_lp, _MAXP2 + 1)
 
 
-def coarse_search(x_lp: torch.Tensor):
+def coarse_search(x_lp: torch.Tensor, exact_rank: bool = False):
     """The 4x-decimated coarse stage of rnn_pitch_search (pitch.c:322-340):
-    the top-2 coarse lags (bp0, bp1), [S] int32."""
+    the top-2 coarse lags (bp0, bp1), [S] int32.  The correlations sum in
+    f64 and round once; ``exact_rank`` ranks with find_best_pitch_exact."""
     len4 = _N2 // 2                                  # 240
     nl4 = _MAX_PITCH // 4                            # 147
     x4 = x_lp[:, _X_OFF::2][:, :len4]
     y4 = x_lp[:, 0:2 * ((_N2 * 2 + _MAX_PITCH) // 4):2]   # [S, 387]
-    xc4 = batched_xcorr(x4.contiguous(), y4.contiguous(), nl4)
+    xc4 = batched_xcorr(x4.double(), y4.double(), nl4).float()
+    if exact_rank:
+        return find_best_pitch_exact(xc4, y4, len4)
     return find_best_pitch(xc4, _sliding_syy(y4, len4, nl4))
 
 
-def fine_search(bx: torch.Tensor, syy: torch.Tensor, bp0: torch.Tensor,
-                bp1: torch.Tensor) -> torch.Tensor:
+def fine_search(bx: torch.Tensor, syy: Optional[torch.Tensor],
+                bp0: torch.Tensor, bp1: torch.Tensor,
+                exact_y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The 2x-decimated fine stage of rnn_pitch_search (pitch.c:342-384):
     bx the lag table, syy [S, 294] the ranking's denominators (1 + the lag
-    windows' energies, clamped >= 1), bp0/bp1 the coarse lags.  Returns
+    windows' energies, clamped >= 1), bp0/bp1 the coarse lags; with
+    ``exact_y`` (the whitened buffer) the ranking is find_best_pitch_exact
+    on its running energies instead, and syy is not read.  Returns
     ``pitch`` in 48 kHz samples before the 768-minus flip."""
     nl2 = FINE_LAGS
     # fine search, 2x decimated, within 2 lags of 2*best
@@ -176,7 +228,8 @@ def fine_search(bx: torch.Tensor, syy: torch.Tensor, bp0: torch.Tensor,
            ((lags - 2 * bp1[:, None]).abs() <= 2)
     xc2 = torch.where(cand, torch.clamp(bx[:, :nl2], min=-1.0),
                       torch.zeros_like(bx[:, :nl2]))
-    fb0, _ = find_best_pitch(xc2, syy)
+    fb0, _ = (find_best_pitch(xc2, syy) if exact_y is None
+              else find_best_pitch_exact(xc2, exact_y, _N2))
     # pseudo-interpolation (pitch.c:368-384)
     a = _take(xc2, torch.clamp(fb0 - 1, min=0))
     b = _take(xc2, fb0)
@@ -188,13 +241,16 @@ def fine_search(bx: torch.Tensor, syy: torch.Tensor, bp0: torch.Tensor,
     return (2 * fb0 - offset).int()
 
 
-def pitch_search(x_lp: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+def pitch_search(x_lp: torch.Tensor, bx: torch.Tensor,
+                 exact_rank: bool = False) -> torch.Tensor:
     """x_lp: [S, 864] whitened, decimated pitch buffer; bx its lag table.
 
     Returns ``pitch`` in 48 kHz samples before the 768-minus flip, as
     rnn_pitch_search writes it (pitch.c:281-385) for (x_lp+384, x_lp, 960,
-    588)."""
-    bp0, bp1 = coarse_search(x_lp)
+    588).  ``exact_rank`` ranks both stages with find_best_pitch_exact."""
+    bp0, bp1 = coarse_search(x_lp, exact_rank)
+    if exact_rank:
+        return fine_search(bx, None, bp0, bp1, exact_y=x_lp)
     return fine_search(bx, _sliding_syy(x_lp, _N2, FINE_LAGS), bp0, bp1)
 
 
@@ -209,7 +265,7 @@ def remove_doubling(x_lp: torch.Tensor, pitch_index: torch.Tensor,
 
     x_lp: [S, 864]; pitch_index, prev_period: [S] int32 in 48 kHz units;
     prev_gain: [S]; bx: the lag table; yy: [S, 385] the energies of the
-    480-sample windows at each table entry (f32 prefix sums of x_lp when
+    480-sample windows at each table entry (computed from x_lp when
     None).  Every candidate's 480-tap product and energy is a lookup.
     Returns (new_pitch_index [S] int32, gain [S])."""
     T0 = torch.clamp(pitch_index // 2, max=_MAXP2 - 1).int()
@@ -218,13 +274,8 @@ def remove_doubling(x_lp: torch.Tensor, pitch_index: torch.Tensor,
 
     xx = bx[:, _MAXP2]                                # lag 0
     xy = _take(bx, _MAXP2 - T0)
-    if yy is None:
-        # yy_rev[u] = energy of the lag-(384-u) window (prefix sums, >= 0)
-        c = Fn.pad(torch.cumsum(x_lp * x_lp, dim=-1), (1, 0))
-        yy_rev = torch.clamp(c[:, _N2:_DS_LEN + 1] - c[:, :_MAXP2 + 1],
-                             min=0.0)
-    else:
-        yy_rev = yy
+    # yy_rev[u] = energy of the lag-(384-u) window
+    yy_rev = window_energy(x_lp, _N2, _MAXP2 + 1) if yy is None else yy
     yy = _take(yy_rev, _MAXP2 - T0)
     best_xy, best_yy = xy, yy
     g0 = _pitch_gain(xy, xx, yy)

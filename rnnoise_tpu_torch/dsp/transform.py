@@ -10,8 +10,11 @@ reference's KissFFT: forward = DFT / 960 (src/kiss_fft.c:459,582), inverse
 kernels of ``cuda_spectral.py`` replace on the main path.  The forward ones
 sum in f64 and round once to f32: the spectra feed the pitch, band-energy
 and silence decisions, where an f32 sum's ~1e-6 error flips an int8
-activation now and then.  The inverse only shapes the output and sums in
-f32.
+activation now and then.  For the same reason the band energies and
+correlations and the DCT, which make the network's features and the
+silence gate, sum in f64 and round once, so that a kernel summing in
+another order (``csrc/frame.cu``) gets the same floats.  The inverse and
+the gain interpolation only shape the output and sum in f32.
 """
 
 from __future__ import annotations
@@ -55,15 +58,22 @@ def _device_matrix(name: str, windowed: bool, device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def device_table(name: str, device: str) -> torch.Tensor:
-    """A constant of ``tables.py`` as an f32 device array: "band" [481, 32]
-    (per-bin energies -> bands), "interp" [32, 481] (band gains -> bins),
-    "dct" [32, 32] and "window" [960]."""
+def device_table(name: str, device: str, f64: bool = False) -> torch.Tensor:
+    """A constant of ``tables.py`` as an f32 device array (the f32 values
+    widened to f64 with ``f64``): "band" [481, 32] (per-bin energies ->
+    bands), "interp" [32, 481] (band gains -> bins), "dct" [32, 32] and
+    "window" [960]."""
     m = {"band": lambda: tables.band_matrix().T,
          "interp": lambda: tables.interp_matrix().T,
          "dct": lambda: tables.dct_matrix().T,
          "window": tables.full_window}[name]()
-    return torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(device)
+    m = np.ascontiguousarray(m, np.float32)
+    return torch.from_numpy(m.astype(np.float64) if f64 else m).to(device)
+
+
+def _dot64(x: torch.Tensor, name: str) -> torch.Tensor:
+    """x @ device_table(name), summed in f64 and rounded once to f32."""
+    return (x.double() @ device_table(name, str(x.device), True)).float()
 
 
 def forward_transform(x: torch.Tensor) -> torch.Tensor:
@@ -97,14 +107,14 @@ def compute_band_energy(X: torch.Tensor) -> torch.Tensor:
     """X: [..., 962] re|im -> [..., 32] triangular band energies
     (src/denoise.c:90-113)."""
     re, im = X[..., :FREQ_SIZE], X[..., FREQ_SIZE:]
-    return (re * re + im * im) @ device_table("band", str(X.device))
+    return _dot64(re * re + im * im, "band")
 
 
 def compute_band_corr(X: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     """Triangular-banded Re{X conj(P)} (src/denoise.c:115-138)."""
     c = X[..., :FREQ_SIZE] * P[..., :FREQ_SIZE] \
         + X[..., FREQ_SIZE:] * P[..., FREQ_SIZE:]
-    return c @ device_table("band", str(X.device))
+    return _dot64(c, "band")
 
 
 def interp_band_gain(band_g: torch.Tensor) -> torch.Tensor:
@@ -134,7 +144,7 @@ def pitch_filter(X, P, Ex, Ep, Exp, g):
 
 def dct(x: torch.Tensor) -> torch.Tensor:
     """32-point DCT-II with the reference's legacy sqrt(2/22) scaling."""
-    return x @ device_table("dct", str(x.device))
+    return _dot64(x, "dct")
 
 
 def frame_synthesis(synthesis_mem: torch.Tensor, Y: torch.Tensor,

@@ -22,7 +22,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNEL_SOURCES = ("rnn_step", "spectral", "analysis")
+KERNEL_SOURCES = ("rnn_step", "spectral", "analysis", "frame")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,14 +93,24 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
 def check(rc: int, what: str) -> None:
     """Raise on the CUDA error code a launch function returned."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(fn, what: str, device: torch.device, *args) -> None:
+    """Call the launch function ``fn`` with ``args`` and the current stream
+    of ``device``, with ``device`` made the current one: the launch and the
+    kernel's ``cudaFuncSetAttribute`` apply to the current device, which
+    need not be the tensors'.  Raises on the error code it returns."""
+    with torch.cuda.device(device):
+        check(fn(*args, stream(device)), what)
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, dtype,

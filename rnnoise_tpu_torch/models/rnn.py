@@ -4,7 +4,8 @@ Replicates compute_rnn (reference src/rnn.c:44-60) over a stream batch —
 the PyTorch counterpart of ``rnnoise_tpu/models/rnn.py``.  On the default
 numerics (int8 weights, rational activations) the step runs as one CUDA
 kernel for CUDA tensors (``nn/cuda_rnn.py``); this module holds the layer
-graph that is its plain version and the float-weight path.
+graph that is its plain version and the float-weight and exact-activation
+paths, which run as plain PyTorch on any device.
 """
 
 from __future__ import annotations
@@ -90,13 +91,10 @@ def compute_rnn(params: ModelParams, state: RNNState, features: torch.Tensor,
     The default numerics go through the RNN-step kernel wrapper
     (``nn.cuda_rnn.compute_rnn_step``), or its plain version when
     ``plain`` is set.  The float-weight and exact-activation variants have
-    no CUDA kernel yet and run on CPU tensors only."""
+    no kernel and run as the plain layer graph on any device."""
     if rt.quantized and rt.approx_act and params.conv2.weights_q is not None:
         from ..nn import cuda_rnn
         step = cuda_rnn.compute_rnn_plain if plain else cuda_rnn.compute_rnn_step
         return step(params, state, features, silence)
-    if features.is_cuda:
-        raise NotImplementedError(
-            "only the int8 / approx-activation numerics have a CUDA kernel")
     return compute_rnn_layers(params, state, features, rt.quantized,
                               rt.approx_act, silence)

@@ -138,11 +138,10 @@ def compute_rnn_step(params: ModelParams, state: RNNState,
     gains = torch.empty((S, NB), dtype=f32, device=dev)
     vad = torch.empty((S,), dtype=f32, device=dev)
     p = kernels.ptr
-    rc = _lib().rnnt_rnn_step(
+    kernels.launch(
+        _lib().rnnt_rnn_step, "rnn_step", dev,
         p(feats), p(silence), *(p(t) for t in st), *(p(t) for t in pk),
-        *(p(t) for t in out), p(gains), p(vad),
-        S, F, C, N, NB, kernels.stream())
-    kernels.check(rc, "rnn_step")
+        *(p(t) for t in out), p(gains), p(vad), S, F, C, N, NB)
     compute_rnn_step.launches += 1
     return out, gains, vad
 

@@ -3,16 +3,17 @@
 over 150 stateful frames, for several signals, with one kernel at a time or
 a configuration's kernels together.
 
-    python3 scripts/torch_kernel_drift.py [--seeds 1 2 3] [--which f i r x a p]
+    python3 scripts/torch_kernel_drift.py [--seeds 1 2 3] [--which f i r x a p m]
 
 Run from the repo root on a CUDA machine.  The signals are chip_smoke.py's
 (S=64, every 8th stream with a near-silent stretch), from seed 1234 + each
 --seeds value; chip_smoke.py's own comparison is seed 1.  Each ``--which``
 item names the kernels the kernel path launches: f = forward spectra,
 i = inverse spectrum, r = RNN step, x = lag table, a = analysis, p =
-post-filter; the others run their plain versions.  An item runs in the
-configuration that has its kernels (config.CONFIGURATIONS: fused for a and
-p, xcorr for x, scan otherwise) and is held against that configuration's
+post-filter, m = the whole-chunk kernel; the others run their plain
+versions.  An item runs in the configuration that has its kernels
+(config.CONFIGURATIONS: mono for m, fused for a and p, xcorr for x, scan
+otherwise) and is held against that configuration's
 plain path.  For each seed and item it prints max |PCM| (LSB) and max |VAD|
 against the plain path, the final pitch periods that differ, and the frames
 and streams off by more than 1 LSB.
@@ -28,7 +29,7 @@ from chip_smoke import MODEL, SEED, signals  # noqa: E402
 from rnnoise_tpu_torch.api import RNNoise  # noqa: E402
 from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device  # noqa: E402
 from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16  # noqa: E402
-from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_xcorr  # noqa: E402
+from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr  # noqa: E402
 from rnnoise_tpu_torch.dsp import cuda_spectral as spec  # noqa: E402
 from rnnoise_tpu_torch.nn import cuda_rnn  # noqa: E402
 
@@ -40,13 +41,15 @@ KERNELS = {"f": (spec, "forward_spectral", spec.forward_spectral_plain),
                  cuda_xcorr.lag_corr_table_plain),
            "a": (cuda_analysis, "analysis_spectral",
                  cuda_analysis.analysis_spectral_plain),
-           "p": (spec, "postfilter_synthesis", spec.postfilter_synthesis_plain)}
-PATH_KERNELS = {"scan": "fir", "xcorr": "xfir", "fused": "arp"}
+           "p": (spec, "postfilter_synthesis", spec.postfilter_synthesis_plain),
+           "m": (cuda_frame, "process_chunk_monokernel",
+                 cuda_frame.process_chunk_monokernel_plain)}
+PATH_KERNELS = {"scan": "fir", "xcorr": "xfir", "fused": "arp", "mono": "m"}
 
 
 def configuration(which):
     """The configuration whose kernels include all of ``which``."""
-    for path in ("scan", "xcorr", "fused"):
+    for path in PATH_KERNELS:
         if set(which) <= set(PATH_KERNELS[path]):
             return path
     raise SystemExit(f"no configuration runs all of {which!r}")

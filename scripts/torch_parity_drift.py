@@ -5,7 +5,7 @@ CPU, in each of the HP biquad's state roundings ("f64", the default, and
 package's own drift between batch sizes.
 
     RNNT_CACHE_DIR=0 python3 scripts/torch_parity_drift.py [--seeds 0 1 2] \
-        [--configs scan xcorr fused]
+        [--configs scan xcorr fused mono]
 
 Run from the repo root (it imports both packages and tests/).  For each
 seed: 4 streams of the parity tests' signal recipe through
@@ -17,6 +17,7 @@ one, (c) JAX at S=4 against JAX run one stream at a time.
 """
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -34,8 +35,7 @@ import torch  # noqa: E402
 from rnnoise_tpu import denoise as jd  # noqa: E402
 from rnnoise_tpu.weights.loader import load_model_file  # noqa: E402
 from rnnoise_tpu_torch import denoise as td  # noqa: E402
-from rnnoise_tpu_torch.config import CONFIGURATIONS  # noqa: E402
-from rnnoise_tpu_torch.dsp import biquad as tbq  # noqa: E402
+from rnnoise_tpu_torch.config import CONFIGURATIONS, HP_ROUNDINGS  # noqa: E402
 from rnnoise_tpu_torch.weights.loader import params_from_numpy  # noqa: E402
 from tests.torch_helpers import MODEL_BLOB, make_signal  # noqa: E402
 
@@ -64,13 +64,12 @@ def main():
         jo, jv = round_i16(jo), np.asarray(jv)
         row = [f"seed {seed}:"]
         for config in a.configs:
-            for mode in ("xla_cpu", "f64"):
-                old = tbq.set_state_rounding(mode)
+            for mode in HP_ROUNDINGS:
                 _, to, tv = td.process_frames_tm_i16(
                     tp, td.init_state(S, device="cpu"),
                     torch.from_numpy(pcm.transpose(1, 0, 2).astype(np.int16)),
-                    CONFIGURATIONS[config])
-                tbq.set_state_rounding(old)
+                    dataclasses.replace(CONFIGURATIONS[config],
+                                        hp_rounding=mode))
                 row.append(f"port {config}, {mode} state: PCM "
                            f"{np.abs(jo - to.numpy().transpose(1, 0, 2)).max()} "
                            f"VAD {np.abs(jv - tv.numpy().T).max():.2e};")

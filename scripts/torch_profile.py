@@ -5,7 +5,7 @@
         [--frames 20] [--trace PATH]
 
 Warms up, then profiles one chained process_frames_tm_i16 chunk in the
-kernel configuration named (config.CONFIGURATIONS: scan, xcorr or fused;
+kernel configuration named (config.CONFIGURATIONS: scan, xcorr, fused or mono;
 the default configuration when none is named) with torch.profiler (CPU and
 CUDA activities).  Prints the wall time, the
 device-busy time (sum of kernel times) and its share of the wall, launches
@@ -24,7 +24,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", choices=("scan", "xcorr", "fused"))
+    ap.add_argument("--config", choices=("scan", "xcorr", "fused", "mono"))
     ap.add_argument("--streams", type=int, default=1024)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--trace", help="write the Chrome trace to this path")
@@ -67,7 +67,7 @@ def main():
     print(f"{smi}; {name} configuration, S={S} T={T}: wall {wall * 1e3:.1f} ms "
           f"({wall * 1e3 / T:.2f} ms/frame), device busy {dev_us / 1e3:.1f} ms "
           f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
-          f"{launches / T:.0f} kernel launches per frame")
+          f"{launches / T:.3g} kernel launches per frame")
     print(events.table(sort_by="self_device_time_total", row_limit=25,
                        max_name_column_width=60))
     if a.trace:

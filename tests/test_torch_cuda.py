@@ -18,7 +18,7 @@ import torch
 from rnnoise_tpu_torch import kernels
 from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device
 from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
-from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_xcorr
+from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr
 from rnnoise_tpu_torch.dsp import cuda_spectral as spec
 from rnnoise_tpu_torch.dsp import pitch
 from rnnoise_tpu_torch.dsp.transform import compute_band_corr, compute_band_energy
@@ -144,6 +144,28 @@ def test_postfilter_kernel(dev):
     pl = spec.postfilter_synthesis_plain(*args)
     assert _rel(k[0], pl[0]) <= 1e-4 and _rel(k[1], pl[1]) <= 1e-4
     assert float((k[2] - pl[2]).abs().max()) <= 2e-5
+
+
+def test_monokernel(dev):
+    """The whole-chunk kernel against its plain version from a warm state,
+    at S=13 (a block of 8 with its tail masked): one launch, the caller's
+    state untouched, PCM within 4 LSB, VAD 2e-3, lastg 1e-3, T0 in all but 2
+    streams."""
+    params = load_model_file(MODEL_BLOB, device=dev)
+    S, T = 13, 12
+    pcm = torch.from_numpy(_signal(np.random.default_rng(6), S, 4 + T)).to(dev)
+    st, _, _ = process_frames_tm_i16(params, init_state(S, device=dev), pcm[:4],
+                                     CONFIGURATIONS["fused"])
+    before = cuda_frame.process_chunk_monokernel.launches
+    saved = st.pitch_buf.clone()
+    kst, ko, kv = cuda_frame.process_chunk_monokernel(params, st, pcm[4:])
+    assert cuda_frame.process_chunk_monokernel.launches == before + 1
+    assert torch.equal(st.pitch_buf, saved)
+    pst, po, pv = cuda_frame.process_chunk_monokernel_plain(params, st, pcm[4:])
+    assert int((ko.int() - po.int()).abs().max()) <= 4
+    assert float((kv - pv).abs().max()) <= 2e-3
+    assert float((kst.lastg - pst.lastg).abs().max()) <= 1e-3
+    assert int((kst.last_period != pst.last_period).sum()) <= 2
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGURATIONS))

@@ -9,9 +9,12 @@ import pytest
 import torch
 
 from rnnoise_tpu import denoise as jd
+from rnnoise_tpu.config import RuntimeConfig as JRuntime
+from rnnoise_tpu import tables as jtab
+from rnnoise_tpu.dsp import biquad as jbq
 from rnnoise_tpu.weights.loader import load_model_file as jload
 from rnnoise_tpu_torch import denoise as td
-from rnnoise_tpu_torch.config import CONFIGURATIONS, DEFAULT_RUNTIME
+from rnnoise_tpu_torch.config import CONFIGURATIONS, DEFAULT_RUNTIME, RuntimeConfig
 from rnnoise_tpu_torch.weights.loader import params_from_numpy
 from tests.torch_helpers import (MODEL_BLOB, make_signal,  # noqa: F401
                                  no_jax_compile_cache, state_to_torch,
@@ -69,8 +72,7 @@ def _port(tp, seed, rt):
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGURATIONS))
-def test_slice_matches_reference_150_frames(models, reference, xla_cpu_hp_state,
-                                            config):
+def test_slice_matches_reference_150_frames(models, reference, config):
     """PCM within 4 LSB, VAD within 2e-3, gains (lastg) within 1e-3, final
     pitch periods exact (the reference's parity rules, docs/PARITY.md), for
     each kernel configuration of the main path (their plain versions here).
@@ -79,7 +81,7 @@ def test_slice_matches_reference_150_frames(models, reference, xla_cpu_hp_state,
     is the JAX package's scan path: its fused kernels run on a TPU only."""
     _, tp = models
     jst, jout, jvad = reference(42)
-    tst, tout, tvad = _port(tp, 42, CONFIGURATIONS[config])
+    tst, tout, tvad = _port(tp, 42, xla_cpu_hp_state(CONFIGURATIONS[config]))
     pcm_err = np.abs(jout.astype(int) - tout.astype(int)).max()
     vad_err = np.abs(jvad - tvad).max()
     g_err = np.abs(np.asarray(jst.lastg) - tst.lastg.numpy()).max()
@@ -178,3 +180,74 @@ def test_one_frame_from_a_reference_state(models):
                                  torch.from_numpy(pcm[:, 8].copy()))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=0.05)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5)
+
+
+def _frames_state(S, T, seed):
+    """The JAX package's state after T frames of the signal recipe, as both
+    packages' states, and the next frame HP-filtered."""
+    jp = jload(MODEL_BLOB)
+    rng = np.random.default_rng(seed)
+    pcm = np.round(np.stack([make_signal(rng, T + 1) for _ in range(S)]))
+    pcm = pcm.reshape(S, T + 1, 480).astype(np.float32)
+    jst, _, _ = jax.jit(lambda s, x: jd.process_frames(jp, s, x))(
+        jd.init_state(S), jnp.asarray(pcm[:, :T]))
+    x, _ = jbq.biquad(jnp.asarray(pcm[:, T]), jst.mem_hp, jtab.BIQUAD_HP_B,
+                      jtab.BIQUAD_HP_A)
+    return jst, state_to_torch(jst), np.array(x)
+
+
+def test_training_and_lowpass_features_match_reference():
+    """compute_frame_features with ``training`` (the silence gate at E < 0.1,
+    features kept) and ``lowpass_bin`` (X zeroed from that bin up) against
+    the JAX package's from the same state and frame, in each configuration
+    (both options take the pitch chain in PyTorch)."""
+    S = 4
+    jst, tst, x = _frames_state(S, 12, 31)
+    lp = np.array([481, 120, 37, 300], np.int32)
+    jf = {}
+    for training, lowpass in ((True, None), (False, lp), (True, lp)):
+        _, ff = jd.compute_frame_features(
+            jst, jnp.asarray(x), training=training,
+            lowpass_bin=None if lowpass is None else jnp.asarray(lowpass))
+        jf[training, lowpass is None] = ff
+    for config, rt in CONFIGURATIONS.items():
+        for (training, no_lp), jff in jf.items():
+            lowpass = None if no_lp else torch.from_numpy(lp)
+            st, tff = td.compute_frame_features(tst, torch.from_numpy(x), rt,
+                                                training=training,
+                                                lowpass_bin=lowpass)
+            X = np.asarray(jff.X)
+            np.testing.assert_allclose(
+                tff.X.numpy(), np.concatenate([X.real, X.imag], -1),
+                atol=1e-4 * np.abs(X).max(), rtol=0)
+            np.testing.assert_array_equal(tff.silence.numpy(),
+                                          np.asarray(jff.silence))
+            np.testing.assert_allclose(tff.features.numpy(),
+                                       np.asarray(jff.features), atol=2e-4,
+                                       rtol=0, err_msg=config)
+            assert (tff.features.abs().sum(-1) > 0).all() or not training
+    # bins at and above the lowpass bin are zero in both halves
+    _, tff = td.compute_frame_features(tst, torch.from_numpy(x),
+                                       lowpass_bin=torch.from_numpy(lp))
+    for s, b in enumerate(lp):
+        assert not tff.X[s, b:481].any() and not tff.X[s, 481 + b:].any()
+
+
+def test_exact_pitch_rank_configuration_matches_reference(models):
+    """RuntimeConfig(exact_pitch_rank=True) runs (it raised TypeError
+    before) and tracks the JAX package's exact ranking: 10 frames at S=2,
+    periods exact, PCM within 4 LSB."""
+    jp, tp = models
+    S, T = 2, 10
+    pcm = _pcm(7, S=S, T=T)
+    jst, jout, _ = jax.jit(lambda s, x: jd.process_frames(
+        jp, s, x, JRuntime(exact_pitch_rank=True)))(
+        jd.init_state(S), jnp.asarray(pcm.astype(np.float32)))
+    rt = xla_cpu_hp_state(RuntimeConfig(exact_pitch_rank=True))
+    tst, tout, _ = td.process_frames_tm_i16(
+        tp, td.init_state(S, device="cpu"),
+        torch.from_numpy(pcm.transpose(1, 0, 2).copy()), rt)
+    np.testing.assert_array_equal(tst.last_period.numpy(),
+                                  np.asarray(jst.last_period))
+    assert np.abs(_round_i16(jout).astype(int)
+                  - tout.numpy().transpose(1, 0, 2).astype(int)).max() <= 4

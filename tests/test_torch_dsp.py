@@ -17,8 +17,7 @@ from rnnoise_tpu_torch.dsp import biquad as tbq
 from rnnoise_tpu_torch.dsp import cuda_spectral as spec
 from rnnoise_tpu_torch.dsp import transform as ttr
 from tests.conftest import speechlike
-from tests.torch_helpers import (no_jax_compile_cache,  # noqa: F401
-                                 xla_cpu_hp_state)
+from tests.torch_helpers import no_jax_compile_cache  # noqa: F401
 
 
 def _ri(X):
@@ -32,7 +31,7 @@ def _rel(a, b):
     return float((np.abs(a - b).max(-1) / np.abs(b).max(-1)).max())
 
 
-def test_biquad_state_tracks_reference_bitwise(xla_cpu_hp_state):
+def test_biquad_state_tracks_reference_bitwise():
     """20 chained frames in the "xla_cpu" state rounding: the filter state
     is bit-identical to the JAX package's (its 1-ulp errors would grow ~290x
     per frame), the output within a fraction of an LSB."""
@@ -48,14 +47,14 @@ def test_biquad_state_tracks_reference_bitwise(xla_cpu_hp_state):
         ys.append(np.asarray(y))
     ty, tm = tbq.biquad_frames(torch.from_numpy(x.transpose(1, 0, 2).copy()),
                                torch.zeros(S, 2), tables.BIQUAD_HP_B,
-                               tables.BIQUAD_HP_A)
+                               tables.BIQUAD_HP_A, "xla_cpu")
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_allclose(ty.numpy(), np.stack(ys), atol=5e-3, rtol=0)
     # one frame at a time gives the same as the chunk
     m = torch.zeros(S, 2)
     for t in range(T):
         y1, m = tbq.biquad(torch.from_numpy(x[:, t].copy()), m,
-                           tables.BIQUAD_HP_B, tables.BIQUAD_HP_A)
+                           tables.BIQUAD_HP_B, tables.BIQUAD_HP_A, "xla_cpu")
         np.testing.assert_allclose(y1.numpy(), ty[t].numpy(), atol=5e-3, rtol=0)
     assert torch.equal(m, tm)
 
@@ -87,6 +86,34 @@ def test_biquad_f64_state_tracks_exact_filter():
     np.testing.assert_allclose(ty.numpy().transpose(1, 0, 2).reshape(S, -1),
                                y, atol=0.05, rtol=0)
     np.testing.assert_allclose(tm.numpy(), m, atol=0.02, rtol=0)
+
+
+def test_hp_rounding_is_a_configuration():
+    """No module global decides the HP-state rounding: each call names its
+    own (RuntimeConfig.hp_rounding through the denoiser), calls with the two
+    roundings interleave without touching each other, and an unknown one is
+    refused."""
+    from rnnoise_tpu_torch import denoise as td
+    from rnnoise_tpu_torch.config import RuntimeConfig
+    assert not hasattr(tbq, "set_state_rounding")
+    assert not hasattr(tbq, "_STATE_ROUNDING")
+    rng = np.random.default_rng(3)
+    S, T = 2, 6
+    x = np.stack([speechlike(rng, T * 480, f0=100 + 50 * i) for i in range(S)])
+    x = torch.from_numpy(np.round(x).reshape(S, T, 480).transpose(1, 0, 2)
+                         .astype(np.float32).copy())
+    mem = {}
+    for mode in ("xla_cpu", "f64", "xla_cpu", "f64"):
+        _, m = tbq.biquad_frames(x, torch.zeros(S, 2), tables.BIQUAD_HP_B,
+                                 tables.BIQUAD_HP_A, mode)
+        assert mode not in mem or torch.equal(mem[mode], m)
+        mem[mode] = m
+        st, _, _ = td.process_frames_tm(None, td.init_state(S, device="cpu"),
+                                        x, RuntimeConfig(hp_rounding=mode))
+        assert torch.equal(st.mem_hp, m)
+    assert not torch.equal(mem["xla_cpu"], mem["f64"])
+    with pytest.raises(ValueError, match="hp_rounding"):
+        RuntimeConfig(hp_rounding="f32")
 
 
 @pytest.fixture(scope="module")

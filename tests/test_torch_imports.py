@@ -45,4 +45,5 @@ def test_package_imports_without_a_card():
         mod = rel[:-3].replace(os.sep, ".").removesuffix(".__init__")
         importlib.import_module(mod)
     from rnnoise_tpu_torch import kernels
-    assert not {"rnn_step", "spectral", "analysis"} & set(kernels._LIBS)
+    assert not {"rnn_step", "spectral", "analysis", "frame"} & set(kernels._LIBS)
+    assert "frame" in kernels.KERNEL_SOURCES

@@ -103,3 +103,30 @@ def test_periods_over_stateful_chain():
                                              tgain, bx)
         flips += int((tper.numpy() != np.asarray(jper)).sum())
     assert flips <= 2, f"{flips} period mismatches over {T} frames x {S} streams"
+
+
+def test_exact_rank_matches_reference(bufs):
+    """find_best_pitch_exact (RuntimeConfig.exact_pitch_rank) against the
+    JAX package's: the same top-2 lags on random correlations with ties and
+    on the buffers' searches, coarse and fine."""
+    rng = np.random.default_rng(8)
+    xc = rng.standard_normal((5, 147)).astype(np.float32) * 1e6
+    xc[:, 40] = xc[:, 90]                          # an exact tie
+    xc[3] = -np.abs(xc[3])                         # no positive lag
+    xc[4, :] = -1.0
+    xc[4, 7] = 5.0                                 # one positive lag
+    y = (300 * rng.standard_normal((5, 387))).astype(np.float32)
+    ji = jpitch.find_best_pitch_exact(jnp.asarray(xc), jnp.asarray(y), 240)
+    ti = tpitch.find_best_pitch_exact(torch.from_numpy(xc), torch.from_numpy(y), 240)
+    for a, b in zip(ji, ti):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    ds = np.asarray(jax.jit(jpitch.pitch_downsample)(jnp.asarray(bufs)))
+    jd, td = jnp.asarray(ds), torch.from_numpy(ds.copy())
+    bx_j = jpitch.lag_corr_table(jd)
+    bx_t = torch.from_numpy(np.array(bx_j))
+    for a, b in zip(jpitch.coarse_search(jd, exact_rank=True),
+                    tpitch.coarse_search(td, exact_rank=True)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    np.testing.assert_array_equal(
+        tpitch.pitch_search(td, bx_t, exact_rank=True).numpy(),
+        np.asarray(jpitch.pitch_search(jd, bx_j, exact_rank=True)))

@@ -12,11 +12,11 @@ from rnnoise_tpu.models.rnn import RNNState as JState
 from rnnoise_tpu.models.rnn import compute_rnn as jrnn
 from rnnoise_tpu.nn import layers as jl
 from rnnoise_tpu_torch.config import RuntimeConfig
-from rnnoise_tpu_torch.models.rnn import RNNState, compute_rnn
+from rnnoise_tpu_torch.models.rnn import RNNState, compute_rnn, compute_rnn_layers
 from rnnoise_tpu_torch.nn import cuda_rnn
 from rnnoise_tpu_torch.nn import layers as tl
 from rnnoise_tpu_torch.weights.loader import load_model_file
-from tests.torch_helpers import (MODEL_BLOB, jax_params,  # noqa: F401
+from tests.torch_helpers import (MODEL_BLOB, OnCuda, jax_params,  # noqa: F401
                                  no_jax_compile_cache, random_model_arrays,
                                  torch_params)
 
@@ -125,15 +125,15 @@ def test_packed_weights_layout():
 
 
 def test_float_path_has_no_cuda_kernel():
-    """Only the default numerics have a CUDA kernel; the others run on CPU
-    tensors only and say so for CUDA ones instead of falling back."""
-    class OnCuda(torch.Tensor):
-        @property
-        def is_cuda(self):
-            return True
-
+    """Only the default numerics have a CUDA kernel; the float-weight and
+    exact-activation numerics run the plain layer graph on any device, CUDA
+    tensors included, as the reference runs them."""
     tp = torch_params(random_model_arrays(np.random.default_rng(1)))
     st = RNNState(*(torch.zeros(2, w) for w in (130, 32, 32, 32, 32)))
-    feats = torch.zeros(2, 65).as_subclass(OnCuda)
-    with pytest.raises(NotImplementedError):
-        compute_rnn(tp, st, feats, RuntimeConfig(quantized=False))
+    feats = torch.randn(2, 65, generator=torch.Generator().manual_seed(0))
+    for rt in (RuntimeConfig(quantized=False), RuntimeConfig(approx_act=False),
+               RuntimeConfig(quantized=False, approx_act=False)):
+        want = compute_rnn_layers(tp, st, feats, rt.quantized, rt.approx_act)
+        got = compute_rnn(tp, st, feats.as_subclass(OnCuda), rt)
+        for a, b in zip((*want[0], want[1], want[2]), (*got[0], got[1], got[2])):
+            assert torch.equal(a, b.as_subclass(torch.Tensor))

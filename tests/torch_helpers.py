@@ -4,6 +4,7 @@ against rnnoise_tpu (the JAX reference) on CPU.
 Inputs are made with numpy from a seed and handed to both packages.
 """
 
+import dataclasses
 import os
 import types
 
@@ -32,15 +33,22 @@ def no_jax_compile_cache():
     jax.config.update("jax_enable_compilation_cache", old)
 
 
-@pytest.fixture
-def xla_cpu_hp_state():
-    """Round the port's HP-biquad state as the JAX package's CPU graph does
-    (rnnoise_tpu_torch.dsp.biquad.set_state_rounding): its state map
-    amplifies a 1-ulp difference ~290x per frame, past the parity budget."""
-    from rnnoise_tpu_torch.dsp import biquad
-    old = biquad.set_state_rounding("xla_cpu")
-    yield
-    biquad.set_state_rounding(old)
+def xla_cpu_hp_state(rt=None):
+    """``rt`` (the default configuration when None) with the port's
+    HP-biquad state rounded as the JAX package's CPU graph rounds it
+    (RuntimeConfig.hp_rounding="xla_cpu"): its state map amplifies a 1-ulp
+    difference ~290x per frame, past the parity budget."""
+    from rnnoise_tpu_torch.config import DEFAULT_RUNTIME
+    return dataclasses.replace(rt or DEFAULT_RUNTIME, hp_rounding="xla_cpu")
+
+
+class OnCuda(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one, to drive a wrapper's
+    CUDA branch on a machine without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
 
 
 def random_model_arrays(rng, F=65, C=16, N=32, NB=32):
