@@ -11,7 +11,9 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              the main path's shapes (S=1024, the full rnnoise_synth_v1 model;
              the whole-chunk kernel over T=20 frames from a warm state),
              timed beside the plain version and, where one exists, one
-             PyTorch library call.
+             PyTorch library call (gpu_time: the calls back to back on the
+             card); the forward spectra, the lag table and the analysis
+             also print the f64 floor of their own design's arithmetic.
 3. main    — for each kernel configuration of process_frames_tm_i16
              (config.CONFIGURATIONS: scan, xcorr, fused, mono): S=1024, two
              chained calls of T=100 frames (T=50 for scan and xcorr, the slow
@@ -42,6 +44,14 @@ F32_PEAK = 67e12          # f32 outside the tensor cores, flop/s
 INT8_PEAK = 1979e12       # int8 tensor cores, op/s
 FFT_OPS = 2.5 * 960 * np.log2(960)     # flops of one real 960-point FFT
 FFT1024_OPS = 2.5 * 1024 * 10          # flops of one real 1024-point FFT
+# f64 instructions (add, multiply or fused multiply-add) per second: 64 per
+# clock on each of the 132 SMs at the 1.98 GHz boost clock; the floor of a
+# design's own f64 arithmetic, printed beside (not instead of) its bound
+F64_RATE = 64 * 132 * 1.98e9
+# the lag table's f64 multiply-adds per stream (385 x 480) and the fixed-order
+# sums of its 4 tap slices
+LAG_F64_OPS = 385 * 480 + 385 * 3
+SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clocks (boost 1.98 GHz)
 S_MAIN, T_MAIN = 1024, 100
 T_SLOW = 50               # phase 3's chunks for the scan and xcorr configurations
 T_MONO = 20               # phase 2's chunk for the whole-chunk kernel
@@ -64,11 +74,21 @@ def check(ok, what):
 
 
 def gpu_time(fn, reps=20):
-    """Milliseconds per call by CUDA events, after two warm-up calls."""
+    """Milliseconds per call by CUDA events, after two warm-up calls.  The
+    card is held busy (``torch.cuda._sleep``, twice the host's time to
+    enqueue the calls, at most a second) while the host enqueues them, so
+    that the events time the calls back to back on the device, not the
+    host's launch overhead; a call that waits on the device itself is timed
+    with its waits."""
     import torch
     fn()
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * reps * host, 1.0) * SLEEP_CYCLES_PER_S))
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
@@ -125,6 +145,7 @@ def main():
     from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
     from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr, pitch
     from rnnoise_tpu_torch.dsp import cuda_spectral as spec
+    from rnnoise_tpu_torch.dsp import fft_plan
     from rnnoise_tpu_torch.dsp.transform import (compute_band_corr,
                                                  compute_band_energy)
     from rnnoise_tpu_torch.models.rnn import RNNState
@@ -217,7 +238,8 @@ def main():
         ms=gpu_time(lambda: spec.forward_spectral(mem, x, pbuf, start)),
         plain_ms=gpu_time(lambda: spec.forward_spectral_plain(mem, x, pbuf, start)),
         bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-        library_ms=gpu_time(lambda: torch.fft.rfft(both, dim=-1)))
+        library_ms=gpu_time(lambda: torch.fft.rfft(both, dim=-1)),
+        f64_floor_ms=1e3 * S * fft_plan.f64_ops_per_stream() / F64_RATE)
 
     Y = kX
     k_out = spec.inverse_spectral(Y)
@@ -271,7 +293,8 @@ def main():
         ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_kernel(ds)),
         plain_ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_plain(ds)),
         bound_ms=xc_bound[0], bound_by=xc_bound[1],
-        library_ms=gpu_time(lambda: pitch.batched_xcorr(x_win, ds, 385)))
+        library_ms=gpu_time(lambda: pitch.batched_xcorr(x_win, ds, 385)),
+        f64_floor_ms=1e3 * S * LAG_F64_OPS / F64_RATE)
 
     kX, kP, kT, kg = cuda_analysis.analysis_spectral(*a_args)
     pX, pP, pT, pg = cuda_analysis.analysis_spectral_plain(*a_args)
@@ -305,7 +328,9 @@ def main():
         ms=gpu_time(lambda: cuda_analysis.analysis_spectral(*a_args)),
         plain_ms=gpu_time(lambda: cuda_analysis.analysis_spectral_plain(*a_args)),
         bound_ms=an_bound[0], bound_by=an_bound[1],
-        library_ms=None)
+        library_ms=None,
+        f64_floor_ms=1e3 * S * (2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream())
+        / F64_RATE)
 
     # the post-filter's inputs: the analysed spectrum, that of a noisier
     # pitch window, random gains, every 8th stream silent
@@ -406,6 +431,11 @@ def main():
         f"frames ({mono_ms / T_MONO:.4f} ms per frame), plain {mono_rec['plain_ms']:.1f} ms, "
         f"bound {mono_rec['bound_ms']:.4f} ms ({mono_rec['bound_by']})")
 
+    for rec in (fwd_rec, xc_rec, an_rec):
+        log(f"[kernels] {rec['name']} {rec['ms']:.4f} ms, library "
+            f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
+            f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), f64 floor of "
+            f"its design {rec['f64_floor_ms']:.4f} ms")
     counted = ((rnn_rec, cuda_rnn.compute_rnn_step),
                (fwd_rec, spec.forward_spectral), (inv_rec, spec.inverse_spectral),
                (xc_rec, cuda_xcorr.lag_corr_table_kernel),

@@ -16,14 +16,22 @@
 // both forward DFTs, as rnnt_forward_spectral computes them.
 //
 // What bounds them: a direct correlation is 385 x 480 f64 multiply-adds per
-// stream, and the two DFTs 2 x 481 x 480, against 5-19 KB of input and
-// output per stream, so the f64 issue rate bounds them, not device memory.
-// The design is one block per stream with ds in shared memory, one thread
-// per lag; the ranking and the ladder are serial per stream (one thread:
-// 14 candidate steps of a few operations each), and the DFTs share
-// spectral_common.cuh with the forward-spectrum kernel, so X and P equal its
-// output bit for bit.  The TPU's DFT-1024 correlation, one-hot lookups and
-// grouped ladder windows work around a matrix unit and are not carried over.
+// stream (twice that with the energies) against 5 KB of input and output,
+// and the two spectra two 480-point complex f64 FFTs (~44 k f64 operations), so
+// the f64 issue rate bounds the lag table and the analysis.  The lag table
+// converts ds to f64 once, as it enters shared memory, and gives each
+// thread 7 consecutive lags and a slice of 120 taps, with a window of ds
+// sliding through its registers (analysis_body.cuh: lag_partials): per tap
+// one conflict-free shared load and one broadcast feed 7 multiply-adds, and
+// the 4 slices of a lag meet in one fixed order through shared memory.  The analysis is one block
+// per stream; the ranking and the ladder are serial per stream (one thread:
+// 14 candidate steps of a few operations each), and the spectra share
+// spectral_common.cuh's FFT with the forward-spectrum kernel: with one
+// stream a block, its radix-16 and radix-15 butterflies are split over 4
+// and 8 lanes (the same operations in the same order), and X and P equal
+// the forward kernel's bit for bit.  The TPU's DFT-1024 correlation, one-hot
+// lookups and grouped ladder windows work around a matrix unit and are not
+// carried over.
 //
 // Numerics: pitch ranking sits on ~1e-4 knife edges.  The lag table and the
 // energies sum products of two floats, which are exact in f64, in f64 and
@@ -40,16 +48,22 @@ namespace {
 
 using namespace rnnt;
 
-constexpr int XCORR_THREADS = 416;     // 13 warps: one lag each
+constexpr int XG = 2;                              // streams per block
+constexpr int XCORR_THREADS = XG * LAG_THREADS;    // 512
 
 __global__ void __launch_bounds__(XCORR_THREADS)
-xcorr_kernel(const float* __restrict__ ds, float* __restrict__ bx) {
-  __shared__ float s_ds[DS];
-  const int s = blockIdx.x;
-  load_ds(s_ds, ds + (size_t)s * DS);
+xcorr_kernel(const float* __restrict__ ds, float* __restrict__ bx, int S) {
+  __shared__ double s_ds[XG][DS_PAD];
+  __shared__ double s_part[XG][TAP_SLICES * NLAGS];
+  const int g = threadIdx.x / LAG_THREADS, t = threadIdx.x - g * LAG_THREADS;
+  const int s = blockIdx.x * XG + g;
+  if (s < S) load_ds64(s_ds[g], ds + (size_t)s * DS, t, LAG_THREADS);
   __syncthreads();
-  const int i = threadIdx.x;
-  if (i < NLAGS) lag_row<false>(s_ds, i, bx + (size_t)s * NLAGS, nullptr);
+  if (s < S) lag_partials<false>(s_ds[g], t, s_part[g]);
+  __syncthreads();
+  if (s < S)
+    for (int i = t; i < NLAGS; i += LAG_THREADS)
+      lag_finish<false>(s_part[g], i, bx + (size_t)s * NLAGS, nullptr);
 }
 
 __global__ void __launch_bounds__(ANALYSIS_THREADS)
@@ -76,13 +90,15 @@ extern "C" {
 // ds [S, 864] -> bx [S, 385].  Returns the CUDA error code of the launch.
 int rnnt_lag_corr_table(const float* ds, float* bx, int S, void* stream) {
   if (S <= 0) return 0;
-  xcorr_kernel<<<S, XCORR_THREADS, 0, (cudaStream_t)stream>>>(ds, bx);
+  xcorr_kernel<<<(S + XG - 1) / XG, XCORR_THREADS, 0, (cudaStream_t)stream>>>(
+      ds, bx, S);
   return (int)cudaGetLastError();
 }
 
 // mem, x [S, 480]; pitch_buf [S, 1728]; ds [S, 864]; bp0, bp1 [S] int32
 // (coarse candidates, 12 kHz lags); prev_period [S] int32 (48 kHz units);
-// prev_gain [S]; window [960]; twiddles [960] f64.  Writes X, P [S, 962]
+// prev_gain [S]; window [960]; twiddles [960 + 509] f64 pairs (as
+// rnnt_forward_spectral's).  Writes X, P [S, 962]
 // re|im, T0 [S] int32 (48 kHz units), gain [S].
 int rnnt_analysis_spectral(const float* mem, const float* x,
                            const float* pitch_buf, const float* ds,

@@ -22,30 +22,86 @@ constexpr int MINP2 = 30;          // min period, 24 kHz units
 constexpr int NL2 = 294;           // fine-search lags
 constexpr int MIN_PERIOD = 60;
 constexpr int MAX_PERIOD = 768;
-constexpr int ANALYSIS_THREADS = 512;  // 256 even bins | 256 odd bins
+constexpr int ANALYSIS_THREADS = 512;  // >= a stage's butterflies and the fine lags
 
 __constant__ int SECOND_CHECK[16] = {0, 0, 3, 2, 3, 2, 5, 2, 3, 2, 3, 2, 5, 2, 3, 2};
 
-__device__ __forceinline__ void load_ds(float* s_ds, const float* ds) {
-  for (int i = threadIdx.x; i < DS; i += blockDim.x) s_ds[i] = ds[i];
+// The lag table's tiles (dsp/cuda_xcorr.py holds the same shape): a thread
+// owns LAG_TILE consecutive lags and one slice of TAP_SLICE consecutive
+// taps.  The threads of a slice are SLICE_LANES consecutive ones (two whole
+// warps, the first LAG_TILES of them busy), so a warp's loads of x[j] are one
+// broadcast and its loads of ds[i+j] stride LAG_TILE (odd) doubles, free of
+// bank conflicts; the slices' partial sums meet through shared memory in one
+// fixed order, ((s0 + s1) + (s2 + s3)).
+constexpr int LAG_TILE = 7;                        // lags per thread
+constexpr int TAP_SLICE = 120;                     // taps per slice
+constexpr int TAP_SLICES = N2 / TAP_SLICE;         // 4
+constexpr int LAG_TILES = NLAGS / LAG_TILE;        // 55
+constexpr int SLICE_LANES = 64;
+constexpr int LAG_THREADS = TAP_SLICES * SLICE_LANES;        // 256
+constexpr int DS_PAD = DS + 8;     // a zero tail that the last window reads
+static_assert(NLAGS % LAG_TILE == 0 && N2 % TAP_SLICE == 0 && TAP_SLICES == 4 &&
+              LAG_TILES <= SLICE_LANES && SLICE_LANES % 32 == 0 && LAG_TILE % 2 == 1,
+              "the lag tiles must cover the table, a slice whole warps");
+static_assert(NLAGS + N2 <= DS_PAD, "the last window must stay inside the buffer");
+
+// ds [864] (f32, device or shared memory) into d [DS_PAD] f64, zero-padded,
+// by threads t < nt.
+__device__ __forceinline__ void load_ds64(double* d, const float* ds, int t, int nt) {
+  for (int i = t; i < DS_PAD; i += nt) d[i] = i < DS ? (double)ds[i] : 0.0;
 }
 
-// bx[i] and, with ENERGY, the lag-window energy sum_{j<480} ds[i+j]^2, each
-// summed in f64 and rounded once
+// The partial sums of thread t < LAG_THREADS over its slice, from d = ds in
+// f64 (load_ds64), into part [TAP_SLICES][E][NLAGS] (E = 2 with ENERGY, else
+// 1): acc[i] = sum_j ds[384+j] ds[i+j] and, with ENERGY, the lag-window
+// energy e[i] = sum_j ds[i+j]^2, over the slice's taps in ascending order.
+// Per tap, one shared load of ds[i+j] (a window of LAG_TILE values slides
+// through registers) and one broadcast of x[j] feed LAG_TILE multiply-adds
+// (twice that with ENERGY), with no conversion.
 template <bool ENERGY>
-__device__ __forceinline__ void lag_row(const float* s_ds, int i, float* bx,
-                                        float* yy) {
-  const float* x = s_ds + XOFF;
-  const float* y = s_ds + i;
-  double acc = 0.0, e = 0.0;
-#pragma unroll 8
-  for (int j = 0; j < N2; ++j) {
-    const double v = y[j];
-    acc = fma((double)x[j], v, acc);
-    if (ENERGY) e = fma(v, v, e);
+__device__ __forceinline__ void lag_partials(const double* d, int t, double* part) {
+  const int slice = t / SLICE_LANES, tile = t - slice * SLICE_LANES;
+  if (tile >= LAG_TILES) return;
+  const int i0 = tile * LAG_TILE, j0 = slice * TAP_SLICE;
+  const double* x = d + XOFF + j0;
+  const double* y = d + i0 + j0;
+  double acc[LAG_TILE], e[LAG_TILE], w[LAG_TILE];
+#pragma unroll
+  for (int r = 0; r < LAG_TILE; ++r) {
+    acc[r] = 0.0;
+    e[r] = 0.0;
+    w[r] = y[r];
   }
-  bx[i] = (float)acc;
-  if (ENERGY) yy[i] = (float)e;
+#pragma unroll
+  for (int j = 0; j < TAP_SLICE; ++j) {
+    const double xj = x[j];
+#pragma unroll
+    for (int r = 0; r < LAG_TILE; ++r) {
+      acc[r] = fma(xj, w[r], acc[r]);
+      if (ENERGY) e[r] = fma(w[r], w[r], e[r]);
+    }
+#pragma unroll
+    for (int r = 0; r + 1 < LAG_TILE; ++r) w[r] = w[r + 1];
+    w[LAG_TILE - 1] = y[j + LAG_TILE];
+  }
+  double* p = part + slice * (ENERGY ? 2 : 1) * NLAGS + i0;
+#pragma unroll
+  for (int r = 0; r < LAG_TILE; ++r) {
+    p[r] = acc[r];
+    if (ENERGY) p[NLAGS + r] = e[r];
+  }
+}
+
+// bx[i] (and, with ENERGY, yy[i]) from the slices' partial sums, added in
+// one fixed order and rounded once.
+template <bool ENERGY>
+__device__ __forceinline__ void lag_finish(const double* part, int i, float* bx,
+                                           float* yy) {
+  constexpr int W = (ENERGY ? 2 : 1) * NLAGS;
+  const double* p = part + i;
+  bx[i] = (float)((p[0] + p[W]) + (p[2 * W] + p[3 * W]));
+  if (ENERGY)
+    yy[i] = (float)((p[NLAGS] + p[W + NLAGS]) + (p[2 * W + NLAGS] + p[3 * W + NLAGS]));
 }
 
 // xy / sqrt(1 + xx yy)
@@ -112,35 +168,40 @@ __device__ int resolve_period(const float* bx, const float* yy, const float* xc2
   return max(2 * T + peak_offset(xm, x0, xp), MIN_PERIOD);
 }
 
-// Shared memory of analysis_body.
+// Shared memory of analysis_body: ds in f64 and the lag table's partial
+// sums, then the FFT's buffer.
 struct __align__(16) AnalysisSmem {
-  double u[2 * 2 * FS];            // X, P folded halves
-  float ds[DS];
+  struct Lag {
+    double ds64[DS_PAD];
+    double part[TAP_SLICES * 2 * NLAGS];
+  };
+  union {
+    Lag lag;
+    double2 fft[WS];
+  };
   float bx[NLAGS], yy[NLAGS], xc2[NL2], q[NL2];
   int start;
 };
 
 // The analysis of one stream by a block of ANALYSIS_THREADS threads, from
-// its decimated pitch buffer ds (copied into sm.ds unless it is sm.ds), the
-// frame x and the analysis memory mem [480], the pitch buffer pbuf [1728],
-// the coarse candidates bp0, bp1 and the previous period and gain.  Writes
-// X and P [962] re|im, and from thread 0 *T0_out and *gain_out (visible to
-// the block after the next barrier).
+// its decimated pitch buffer ds [864] (device or shared memory), the frame
+// x and the analysis memory mem [480], the pitch buffer pbuf [1728], the
+// coarse candidates bp0, bp1 and the previous period and gain; tw holds
+// the 960 base twiddles and then the FFT table.  Writes X and P [962]
+// re|im, and from thread 0 *T0_out and *gain_out (visible to the block
+// after the next barrier).
 __device__ __forceinline__ void analysis_body(
     AnalysisSmem& sm, const float* ds, const float* mem, const float* x,
     const float* pbuf, int bp0, int bp1, int prev_period, float prev_gain,
     const float* __restrict__ window, const double2* __restrict__ tw,
     float* X, float* P, int* T0_out, float* gain_out) {
   const int tid = threadIdx.x;
-  if (ds != sm.ds) load_ds(sm.ds, ds);
-  for (int n = tid; n < FS; n += blockDim.x) {
-    const double w0 = window[n], w1 = window[n + FS];
-    fwd_fold(sm.u, n, w0 * mem[n], w1 * x[n]);
-  }
+  load_ds64(sm.lag.ds64, ds, tid, blockDim.x);
   __syncthreads();
-  if (tid < NLAGS) lag_row<true>(sm.ds, tid, sm.bx, sm.yy);
+  if (tid < LAG_THREADS) lag_partials<true>(sm.lag.ds64, tid, sm.lag.part);
   __syncthreads();
-
+  for (int i = tid; i < NLAGS; i += blockDim.x) lag_finish<true>(sm.lag.part, i, sm.bx, sm.yy);
+  __syncthreads();
   // fine search within 2 lags of twice the coarse candidates: ratio
   // (xc 1e-12)^2 / max(1 + yy, 1) over lags with xc > 0
   if (tid < NL2) {
@@ -176,20 +237,16 @@ __device__ __forceinline__ void analysis_body(
   }
   __syncthreads();
   const float* p = pbuf + sm.start;
-  for (int n = tid; n < FS; n += blockDim.x) {
-    const double w0 = window[n], w1 = window[n + FS];
-    fwd_fold(sm.u + 2 * FS, n, w0 * p[n], w1 * p[n + FS]);
-  }
-  __syncthreads();
-
-  const int par = tid >= ANALYSIS_THREADS / 2;
-  const int k = 2 * (tid & (ANALYSIS_THREADS / 2 - 1)) + par;
-  if (k < NBIN) {
-    double re[2], im[2];
-    fwd_bin_sums<2>(sm.u, k, tw, re, im);
-    fwd_store(X, k, re[0], im[0]);
-    fwd_store(P, k, re[1], im[1]);
-  }
+  static_assert(ANALYSIS_THREADS >= 512, "the split butterflies of one stream");
+  fwd_spectra<true, 1>(
+      1, sm.fft, tw, tw + WS, window,
+      [&](int, int n) { return n < FS ? mem + n : x + (n - FS); },
+      [&](int) { return p; },
+      [&](int, int seq, int k, float re, float im) {
+        float* o = seq ? P : X;
+        o[k] = re;
+        o[NBIN + k] = im;
+      });
 }
 
 }  // namespace rnnt

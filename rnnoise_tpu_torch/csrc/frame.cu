@@ -31,22 +31,21 @@
 // decimation carry, the closed form of the log-energy follower and its
 // frames-per-step and VMEM limits.
 //
-// What bounds it: operations.  Per stream and frame it does ~1.3M f64
-// multiply-adds (the lag table and energies 2 x 385 x 480, the two DFTs
-// 2 x 481 x 480, the biquad's Toeplitz term 480 x 479 / 2) and reads the
-// network's ~3 MB of weights once per block, against ~25 KB of state per
-// stream, read and written once a chunk, and 2 KB of PCM per stream and
-// frame in device memory.  The design: a block owns G = 8 streams for all
+// What bounds it: operations.  Per stream and frame it does ~0.5M f64
+// operations (the lag table and energies 2 x 385 x 480 multiply-adds, the
+// two spectra's FFTs ~44 k, the biquad's Toeplitz term 480 x 479 / 2
+// multiply-adds) and reads the network's ~3 MB of weights once per block,
+// against ~25 KB of state per stream, read and written once a chunk, and
+// 2 KB of PCM per stream and frame in device memory.  The design: a block owns G = 8 streams for all
 // T frames, so streams never synchronise across blocks and there is one
 // launch per chunk (the fused configuration makes ~480 per frame,
 // PERF.md).  G = 8 is the RNN step's own stream block: its dp4a
 // loops read each weight once for 8 streams, and at S = 1024 it gives 128
 // blocks for the H100's 132 SMs.  Within a block the per-stream spans (1-6,
 // 8) take the 8 streams one after another on all 512 threads (the
-// analysis's layout: 256 even and 256 odd bins), and the network takes the
-// 8 together.  That keeps one block per SM with 16 warps, so the f64 and
-// dp4a issue rates are far from full: this is the simple design, and the
-// one to make fast later.
+// analysis's block), and the network takes the 8 together.  That keeps one
+// block per SM with 16 warps, so the f64 and dp4a issue rates are far from
+// full: this is the simple design, and the one to make fast later.
 //
 // State: the block copies its streams' input state into the output state at
 // t = 0 and then updates it there; the caller's state is only read.  The
@@ -120,7 +119,8 @@ struct Persist {
 
 // Shared memory of the per-stream analysis (steps 1-6).
 struct __align__(16) FrameSmem {
-  AnalysisSmem an;                 // an.ds: the whitened, decimated buffer
+  AnalysisSmem an;
+  float ds[DS];                    // the whitened, decimated buffer
   float pbuf[PBUF];                // the new pitch buffer
   float xin[FS];                   // the frame's input samples
   float xlp[DS];                   // decimated, before whitening
@@ -282,7 +282,7 @@ __device__ void analyse_stream(const ChunkArgs& a, Persist& ps, FrameSmem& fs,
 #pragma unroll
     for (int k = 0; k < 5; ++k)
       y = __fadd_rn(y, __fmul_rn(fs.lpc[k], i - 1 - k >= 0 ? fs.xlp[i - 1 - k] : 0.0f));
-    fs.an.ds[i] = y;
+    fs.ds[i] = y;
   }
   __syncthreads();
 
@@ -291,8 +291,8 @@ __device__ void analyse_stream(const ChunkArgs& a, Persist& ps, FrameSmem& fs,
   if (tid < NC) {
     double xc = 0.0, e = 0.0;
     for (int j = 0; j < LEN4; ++j) {
-      const double y = fs.an.ds[2 * (tid + j)];
-      xc = fma((double)fs.an.ds[XOFF + 2 * j], y, xc);
+      const double y = fs.ds[2 * (tid + j)];
+      xc = fma((double)fs.ds[XOFF + 2 * j], y, xc);
       e = fma(y, y, e);
     }
     const float xcf = (float)xc;
@@ -319,7 +319,7 @@ __device__ void analyse_stream(const ChunkArgs& a, Persist& ps, FrameSmem& fs,
   // 5. fine search, doubling ladder, window and both spectra
   float* X = a.xp + (size_t)s * 4 * NBIN;
   float* P = X + 2 * NBIN;
-  analysis_body(fs.an, fs.an.ds, d.analysis_mem + (size_t)s * FS,
+  analysis_body(fs.an, fs.ds, d.analysis_mem + (size_t)s * FS,
                 fs.pbuf + PBUF - FS, fs.pbuf, fs.bp[0], fs.bp[1],
                 d.last_period[s], d.last_gain[s], a.window,
                 reinterpret_cast<const double2*>(a.tw), X, P,

@@ -20,18 +20,32 @@
 // silence blend and the lastg update, then the inverse DFT, the synthesis
 // window and the overlap-add with synthesis_mem.
 //
-// What bounds them: a direct DFT is 481 x 960 multiply-adds per spectrum,
-// against 15-19 KB of input and output per stream, so the issue rate bounds
-// them, not device memory.  Twiddles indexed by (n*k) mod 960 would hit
-// shared-memory banks unevenly, so the kernels make them by rotation in
-// registers instead (spectral_common.cuh).  The design halves the work with
-// the (-1)^k symmetry of samples n and n+480, and lets one twiddle serve 4
-// streams (x 2 spectra forward).
+// What bounds them: the forward spectra move ~15 KB of input and output
+// per stream and, as two 480-point complex f64 FFTs (spectral_common.cuh),
+// do ~44 k f64 operations per stream, so device memory bounds them: a
+// block of 128 threads takes 2 streams (46 KB of shared memory with the
+// twiddles it reads, 4 blocks an SM, so that all streams of S = 1024 are in
+// flight at once), loads each input pair of samples once, all of a thread's
+// loads before its first store, runs the radix-2 stage into shared memory
+// and the radix-16 and radix-15 stages in place there, a whole butterfly a
+// thread, and writes X and P row by row.  Of the shapes tried on the H100
+// (1 to 3 streams a block, 64 to 256 threads a stream, more blocks an SM at
+// the price of spills, inputs double-buffered by cp.async), this was the
+// fastest at S = 1024; the lane-split butterflies of the analysis took 3x
+// as long.  The twiddles come from an f64 table built in Python
+// (dsp/fft_plan.py) and appended to the 960 base twiddles, so the
+// `twiddles` argument keeps its meaning for the inverse and the post-filter.
+// The inverse is a direct DFT, 481 x 960 multiply-adds per spectrum against
+// 8 KB of input and output, so its issue rate bounds it.  Its twiddles
+// indexed by (n*k) mod 960 would hit shared-memory banks unevenly, so it
+// makes them by rotation in registers instead, halves the work with the
+// (-1)^k symmetry of samples n and n+480, and lets one twiddle serve 4
+// streams.
 //
 // The forward spectra feed the pitch, band-energy and silence decisions,
 // which sit on knife edges: a 2e-6 difference in X flips an int8 activation
 // now and then, and the flip shows as a transient of a few LSB two frames
-// long.  So the forward kernel windows, folds and sums in f64 and rounds each
+// long.  So the forward kernel windows and transforms in f64 and rounds each
 // bin once to f32, as its plain version (an f64 DFT matmul) does; the two
 // then agree to an ulp.  The inverse and the post-filter only shape the
 // output (nothing after them decides on a threshold but the int16 rounding),
@@ -48,54 +62,40 @@ namespace {
 
 using namespace rnnt;
 
-constexpr int GF = 4;              // streams per block, forward
+constexpr int GF = 2;              // streams per block, forward
 constexpr int GI = 4;              // streams per block, inverse
-constexpr int FWD_THREADS = 512;   // 256 even bins | 256 odd bins
+constexpr int FWD_THREADS = GF * FFT_LANES;   // 128: a butterfly of each stream
 constexpr int INV_THREADS = FS;    // one pair of outputs (n, n+480) each
 constexpr int POST_THREADS = FS;   // one stream per block, as the inverse
 
-// dynamic shared memory of the forward kernel:
-// [spectrum][stream][parity][n] with parity 0 = v[n]+v[n+480], 1 = v[n]-v[n+480]
-constexpr size_t FWD_SMEM = sizeof(double) * 2 * GF * 2 * FS;
-
-__global__ void __launch_bounds__(FWD_THREADS)
+__global__ void __launch_bounds__(FWD_THREADS, 4)
 forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
                const float* __restrict__ pbuf, const int* __restrict__ start,
                const float* __restrict__ window,
                const double2* __restrict__ tw, float* __restrict__ X,
                float* __restrict__ P, int S) {
-  extern __shared__ __align__(16) double s_u[];
-  auto u_at = [&](int sp, int g) { return s_u + (sp * GF + g) * 2 * FS; };
-  const int tid = threadIdx.x, s0 = blockIdx.x * GF;
-  for (int i = tid; i < GF * FS; i += blockDim.x) {
-    int g = i / FS, n = i - g * FS, s = s0 + g;
-    double a = 0.0, b = 0.0, pa = 0.0, pb = 0.0;
-    if (s < S) {
-      double w0 = window[n], w1 = window[n + FS];
-      a = w0 * mem[(size_t)s * FS + n];
-      b = w1 * x[(size_t)s * FS + n];
-      int st = min(max(start[s], 0), MAX_START);
-      const float* p = pbuf + (size_t)s * PBUF + st;
-      pa = w0 * p[n];
-      pb = w1 * p[n + FS];
-    }
-    fwd_fold(u_at(0, g), n, a, b);
-    fwd_fold(u_at(1, g), n, pa, pb);
-  }
-  __syncthreads();
-
-  const int par = tid >= FWD_THREADS / 2;
-  const int k = 2 * (tid & (FWD_THREADS / 2 - 1)) + par;
-  if (k >= NBIN) return;
-  double re[2 * GF], im[2 * GF];         // spectrum sp of stream g at sp*GF+g
-  fwd_bin_sums<2 * GF>(s_u, k, tw, re, im);
-#pragma unroll
-  for (int g = 0; g < GF; ++g) {
-    int s = s0 + g;
-    if (s >= S) break;
-    fwd_store(X + (size_t)s * 2 * NBIN, k, re[g], im[g]);
-    fwd_store(P + (size_t)s * 2 * NBIN, k, re[GF + g], im[GF + g]);
-  }
+  __shared__ double2 s_z[GF * WS];                // 30 KB: 2 sequences a stream
+  const int s0 = blockIdx.x * GF, ns = min(GF, S - s0);
+  // the twiddles the FFT reads (the base table's first 481, then the FFT
+  // table) staged in shared memory; the first stage's barrier orders them
+  __shared__ double2 s_tw[NBIN + FFT_TABLE];
+  for (int i = threadIdx.x; i < NBIN + FFT_TABLE; i += blockDim.x)
+    s_tw[i] = i < NBIN ? tw[i] : tw[WS + i - NBIN];
+  fwd_spectra<false, (GF * FH / FFT_R0 + FWD_THREADS - 1) / FWD_THREADS>(
+      ns, s_z, s_tw, s_tw + NBIN, window,
+      [&](int g, int n) {
+        const size_t s = s0 + g;
+        return n < FS ? mem + s * FS + n : x + s * FS + (n - FS);
+      },
+      [&](int g) {
+        const size_t s = s0 + g;
+        return pbuf + s * PBUF + min(max(start[s], 0), MAX_START);
+      },
+      [&](int g, int seq, int k, float re, float im) {
+        float* o = (seq ? P : X) + (size_t)(s0 + g) * 2 * NBIN;
+        o[k] = re;
+        o[NBIN + k] = im;
+      });
 }
 
 __global__ void __launch_bounds__(INV_THREADS)
@@ -155,18 +155,15 @@ postfilter_kernel(const float* __restrict__ dX, const float* __restrict__ dP,
 extern "C" {
 
 // mem, x [S, 480]; pitch_buf [S, 1728]; start [S] int32 (clamped to
-// [0, 768]); window [960]; twiddles [960] f64 (cos, sin of 2 pi m / 960);
-// X, P [S, 962].  Returns the CUDA error code of the launch.
+// [0, 768]); window [960]; twiddles [960 + 509] f64 pairs: (cos, sin) of
+// 2 pi m / 960, then the FFT table (dsp/fft_plan.py:fft_table, 509); X, P
+// [S, 962].  Returns the CUDA error code of the launch.
 int rnnt_forward_spectral(const float* mem, const float* x,
                           const float* pitch_buf, const int* start,
                           const float* window, const double* twiddles,
                           float* X, float* P, int S, void* stream) {
   if (S <= 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)FWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  forward_kernel<<<(S + GF - 1) / GF, FWD_THREADS, FWD_SMEM,
-                   (cudaStream_t)stream>>>(
+  forward_kernel<<<(S + GF - 1) / GF, FWD_THREADS, 0, (cudaStream_t)stream>>>(
       mem, x, pitch_buf, start, window,
       reinterpret_cast<const double2*>(twiddles), X, P, S);
   return (int)cudaGetLastError();

@@ -1,13 +1,15 @@
 // Device code of the 960-point real spectra, shared by the kernels of
-// spectral.cu (forward and inverse spectra, post-filter and synthesis) and
-// analysis.cu (pitch analysis and both forward spectra).
+// spectral.cu (forward and inverse spectra, post-filter and synthesis),
+// analysis.cu (pitch analysis and both forward spectra) and frame.cu.
 //
-// Forward: a spectrum's windowed input v is folded once into f64 halves,
-// u0[n] = v[n] + v[n+480] (even bins) and u1[n] = v[n] - v[n+480] (odd
-// bins), and each bin is summed in f64 over its half with the twiddles made
-// by f64 rotation (drift below 1e-13 over 480 steps), then rounded once to
-// f32.  The spectra feed knife-edge decisions, so these sums must round as
-// the f64 DFT matmul of the plain versions does.
+// Forward: a stream's two windowed inputs are packed as one complex
+// sequence (X's input real, P's imaginary), transformed by one complex
+// 960-point f64 FFT in shared memory (mixed-radix Stockham stages of
+// radix 4, 16 and 15, the last two in place, with twiddles and roots from an
+// exact f64 table, dsp/fft_plan.py), and the two spectra separated from it; each bin is rounded once to f32.  The spectra
+// feed knife-edge decisions, so these sums must round as the f64 DFT matmul
+// of the plain versions does: an f64 FFT's error (~1e-16 of the row) moves
+// the f32 result by an ulp at most, and rarely.
 //
 // Inverse: outputs n and n+480 come from one pass over the bin pairs
 // (2m, 2m+1) as E+O and E-O, in f32 with twiddles by f32 rotation, reloaded
@@ -17,6 +19,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace rnnt {
 
@@ -29,47 +32,356 @@ constexpr int MI = 241;            // inverse: bin pairs (2m, 2m+1), m < 241
 constexpr int RESEED = 16;         // inverse: table reload period, in pairs
 static_assert(240 % RESEED == 0, "bin 480 must take its twiddle from the table");
 
-// Store the folded halves of one windowed spectrum input at sample n < 480,
-// with a = w[n] v[n] and b = w[n+480] v[n+480]: u[n] = a + b, u[FS+n] = a - b.
-__device__ __forceinline__ void fwd_fold(double* u, int n, double a, double b) {
-  u[n] = a + b;
-  u[FS + n] = a - b;
+// The forward FFT (dsp/fft_plan.py holds the same plan).  Each real input
+// v of 960 samples is transformed as one complex sequence of FH = 480
+// points, c[m] = w[2m] v[2m] + i w[2m+1] v[2m+1], and its spectrum taken
+// from C = FFT(c) in a last pass (fwd_spectra), so each spectrum's error
+// is relative to its own input: a stream's two inputs are never mixed.
+// The stages' radices (fft_plan.FFT_RADICES), the product of the radices
+// before each stage, and each stage's offset in the FFT table
+// (fft_plan.fft_table): its (R - 1) x Ns twiddles, then its R roots.
+constexpr int FH = WS / 2;         // points of a sequence
+constexpr int FFT_R0 = 2, FFT_R1 = 16, FFT_R2 = 15;
+constexpr int FFT_NS1 = FFT_R0, FFT_NS2 = FFT_NS1 * FFT_R1;
+__host__ __device__ constexpr int fft_stage_size(int r, int ns) { return (r - 1) * ns + r; }
+constexpr int FFT_OFF1 = 0, FFT_OFF2 = FFT_OFF1 + fft_stage_size(FFT_R1, FFT_NS1),
+              FFT_TABLE = FFT_OFF2 + fft_stage_size(FFT_R2, FFT_NS2);   // 509
+// butterflies of the in-place stages per stream, two sequences (60 and
+// 64): a block runs one per thread, so it needs this many threads a stream
+constexpr int FFT_LANES = 2 * FH / FFT_R2;
+static_assert(FFT_R0 == 2 && FFT_R1 == 16 && FFT_R2 == 15 && FFT_NS2 * FFT_R2 == FH &&
+              2 * FH / FFT_R1 <= FFT_LANES, "the butterflies below are these radices'");
+
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+// a b, with the products rounded as written (nothing for nvcc to contract)
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -__dmul_rn(a.y, b.y)),
+                      fma(a.x, b.y, __dmul_rn(a.y, b.x)));
+}
+// i a
+__device__ __forceinline__ double2 times_i(double2 a) { return make_double2(-a.y, a.x); }
+
+// The storage slot of point n of a sequence's buffer: n's low 3 bits
+// XOR-swizzled with bits 3-6 (a permutation inside each aligned 8), so the
+// strided stores of the stages spread over the shared-memory banks.
+__device__ __forceinline__ int swz(int n) {
+  return (n & ~7) | ((n ^ (n >> 3) ^ (n >> 4)) & 7);
 }
 
-// Unscaled sums of bin k for NS spectra whose folded halves lie at
-// u + i * 2 * FS (i < NS): re += u[n] cos(2 pi n k / 960), im += u[n] sin(..).
-// tw holds (cos, sin)(2 pi m / 960) in f64.
-template <int NS>
-__device__ __forceinline__ void fwd_bin_sums(const double* u, int k,
-                                             const double2* __restrict__ tw,
-                                             double (&re)[NS], double (&im)[NS]) {
-  const int par = k & 1;
+// Forward DFT-4 in place, the factors +-i as swaps.
+__device__ __forceinline__ void dft4(double2& v0, double2& v1, double2& v2, double2& v3) {
+  const double2 a0 = cadd(v0, v2), a1 = csub(v0, v2);
+  const double2 b0 = cadd(v1, v3), d = csub(v1, v3);
+  const double2 b1 = make_double2(d.y, -d.x);            // -i (v1 - v3)
+  v0 = cadd(a0, b0);
+  v1 = cadd(a1, b1);
+  v2 = csub(a0, b0);
+  v3 = csub(a1, b1);
+}
+
+// Forward DFT-16 in place as 4 x 4: X[k1 + 4 k2] = sum_n2 w16^(n2 k1)
+// w4^(n2 k2) sum_n1 v[4 n1 + n2] w4^(n1 k1); W[q] = w16^q.
+__device__ __forceinline__ void dft16(double2 (&v)[16], const double2* __restrict__ W) {
 #pragma unroll
-  for (int i = 0; i < NS; ++i) { re[i] = 0.0; im[i] = 0.0; }
-  // the twiddle of sample n by rotation with w = twiddle of sample 1
-  const double2 w = tw[k];
-  double cr = 1.0, ci = 0.0;
-  for (int n = 0; n < FS; n += 2) {
-    const double dr = fma(cr, w.x, -ci * w.y), di = fma(cr, w.y, ci * w.x);
+  for (int n2 = 0; n2 < 4; ++n2) dft4(v[n2], v[n2 + 4], v[n2 + 8], v[n2 + 12]);
+  // v[n2 + 4 k1] now holds the inner DFT of column n2 at k1
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const double2 v =
-          *reinterpret_cast<const double2*>(u + (2 * i + par) * FS + n);
-      re[i] = fma(v.x, cr, re[i]);
-      im[i] = fma(v.x, ci, im[i]);
-      re[i] = fma(v.y, dr, re[i]);
-      im[i] = fma(v.y, di, im[i]);
-    }
-    cr = fma(dr, w.x, -di * w.y);
-    ci = fma(dr, w.y, di * w.x);
+  for (int n2 = 1; n2 < 4; ++n2)
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      v[n2 + 4 * k1] = cmul(v[n2 + 4 * k1], W[n2 * k1]);
+  double2 o[16];
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    double2 b0 = v[4 * k1], b1 = v[4 * k1 + 1], b2 = v[4 * k1 + 2], b3 = v[4 * k1 + 3];
+    dft4(b0, b1, b2, b3);
+    o[k1] = b0;
+    o[k1 + 4] = b1;
+    o[k1 + 8] = b2;
+    o[k1 + 12] = b3;
+  }
+#pragma unroll
+  for (int q = 0; q < 16; ++q) v[q] = o[q];
+}
+
+// Forward DFT-3 of (a0, a1, a2) with w = w3: a0 + t, a0 + c t +- i s' d,
+// where t = a1 + a2, d = a1 - a2, c = w.x and s' = w.y.
+__device__ __forceinline__ void dft3(double2& a0, double2& a1, double2& a2, double2 w) {
+  const double2 t = cadd(a1, a2), d = csub(a1, a2);
+  const double2 m = make_double2(fma(w.x, t.x, a0.x), fma(w.x, t.y, a0.y));
+  const double2 u = times_i(make_double2(__dmul_rn(w.y, d.x), __dmul_rn(w.y, d.y)));
+  a0 = cadd(a0, t);
+  a1 = cadd(m, u);
+  a2 = csub(m, u);
+}
+
+// Forward DFT-5 of a[0..4] with w1 = w5, w2 = w5^2 (Rader-free symmetric
+// form: sums and differences of the pairs (1, 4) and (2, 3)).
+__device__ __forceinline__ void dft5(double2 (&a)[5], double2 w1, double2 w2) {
+  const double2 t1 = cadd(a[1], a[4]), d1 = csub(a[1], a[4]);
+  const double2 t2 = cadd(a[2], a[3]), d2 = csub(a[2], a[3]);
+  const double2 m1 = make_double2(fma(w2.x, t2.x, fma(w1.x, t1.x, a[0].x)),
+                                  fma(w2.x, t2.y, fma(w1.x, t1.y, a[0].y)));
+  const double2 m2 = make_double2(fma(w1.x, t2.x, fma(w2.x, t1.x, a[0].x)),
+                                  fma(w1.x, t2.y, fma(w2.x, t1.y, a[0].y)));
+  const double2 u1 = times_i(make_double2(fma(w1.y, d1.x, __dmul_rn(w2.y, d2.x)),
+                                          fma(w1.y, d1.y, __dmul_rn(w2.y, d2.y))));
+  const double2 u2 = times_i(make_double2(fma(w2.y, d1.x, -__dmul_rn(w1.y, d2.x)),
+                                          fma(w2.y, d1.y, -__dmul_rn(w1.y, d2.y))));
+  a[0] = cadd(cadd(a[0], t1), t2);
+  a[1] = cadd(m1, u1);
+  a[4] = csub(m1, u1);
+  a[2] = cadd(m2, u2);
+  a[3] = csub(m2, u2);
+}
+
+// Forward DFT-15 in place by the prime-factor map (3 x 5, no twiddles):
+// point n = (5 n1 + 3 n2) mod 15, bin k = (10 k1 + 6 k2) mod 15; W[q] = w15^q,
+// so w3 = W[5], w5 = W[3], w5^2 = W[6].
+__device__ __forceinline__ void dft15(double2 (&v)[15], const double2* __restrict__ W) {
+  const double2 w3 = W[5], w5 = W[3], w25 = W[6];
+  double2 A[3][5];                       // A[k1][n2]
+#pragma unroll
+  for (int n2 = 0; n2 < 5; ++n2) {
+    double2 a0 = v[(3 * n2) % 15], a1 = v[(5 + 3 * n2) % 15], a2 = v[(10 + 3 * n2) % 15];
+    dft3(a0, a1, a2, w3);
+    A[0][n2] = a0;
+    A[1][n2] = a1;
+    A[2][n2] = a2;
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 3; ++k1) {
+    dft5(A[k1], w5, w25);
+#pragma unroll
+    for (int k2 = 0; k2 < 5; ++k2) v[(10 * k1 + 6 * k2) % 15] = A[k1][k2];
   }
 }
 
-// Store bin k of a forward spectrum, scaled 1/960, into [962] re|im.
-__device__ __forceinline__ void fwd_store(float* out, int k, double re, double im) {
-  const double scale = 1.0 / WS;
-  out[k] = (float)(re * scale);
-  out[NBIN + k] = (float)(-im * scale);
+// One in-place Stockham stage (radix R after NSPAN points' worth of
+// stages) of nseq sequences of FH points at buf + q * FH, by all threads of
+// the block, one butterfly per thread (nseq * FH / R <= blockDim.x): each
+// thread reads its R points and applies the twiddles from the FFT table ft,
+// all threads meet, then each writes its R outputs.  Ends with a barrier.
+template <int R, int NSPAN, int OFF>
+__device__ __forceinline__ void fft_stage(int nseq, double2* buf,
+                                          const double2* __restrict__ ft) {
+  constexpr int M = FH / R;
+  const int i = threadIdx.x;
+  const bool on = i < nseq * M;
+  const int q = on ? i / M : 0, j = i - q * M, jm = j % NSPAN;
+  double2* z = buf + q * FH;
+  double2 v[R];
+  if (on) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = z[swz(j + r * M)];
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], ft[OFF + (r - 1) * NSPAN + jm]);
+    if constexpr (R == 16) dft16(v, ft + OFF + (R - 1) * NSPAN);
+    else dft15(v, ft + OFF + (R - 1) * NSPAN);
+  }
+  __syncthreads();
+  if (on) {
+    const int base = (j - jm) * R + jm;
+#pragma unroll
+    for (int r = 0; r < R; ++r) z[swz(base + r * NSPAN)] = v[r];
+  }
+  __syncthreads();
+}
+
+// The same two stages with each butterfly shared by a group of lanes, for
+// a block that transforms few streams (the analysis: one): the same
+// operations on the same values in the same order, so the same results,
+// from 4 lanes per radix-16 butterfly (a column DFT-4 each, then a row DFT-4
+// each after a transpose by shuffles) and 8 per radix-15 one (5 lanes' DFT-3s,
+// then 3 lanes' DFT-5s), with a few registers a thread.  Lanes of a warp
+// with work all take part in the shuffles; a block needs nseq * 256 threads.
+__device__ __forceinline__ double2 shfl2(double2 v, int src, int width) {
+  return make_double2(__shfl_sync(0xffffffffu, v.x, src, width),
+                      __shfl_sync(0xffffffffu, v.y, src, width));
+}
+
+template <int K>
+__device__ __forceinline__ double2 pick(const double2 (&a)[K], int e) {
+  double2 r = a[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (e == k) r = a[k];
+  return r;
+}
+
+template <int NSPAN, int OFF>
+__device__ __forceinline__ void fft_stage16_split(int nseq, double2* buf,
+                                                  const double2* __restrict__ ft) {
+  constexpr int R = 16, M = FH / R;
+  const int i = threadIdx.x, lanes = nseq * M * 4;
+  const bool warp_on = (i & ~31) < lanes, on = i < lanes;
+  const int c = i & 3, bf = on ? i >> 2 : 0;
+  const int q = bf / M, j = bf - q * M, jm = j % NSPAN;
+  double2* z = buf + q * FH;
+  const double2* W = ft + OFF + (R - 1) * NSPAN;
+  double2 b[4];
+  if (warp_on) {
+    double2 y[4];                        // column c: points c + 4 n1
+#pragma unroll
+    for (int n1 = 0; n1 < 4; ++n1) {
+      const int r = c + 4 * n1;
+      y[n1] = z[swz(j + r * M)];
+      if (r > 0) y[n1] = cmul(y[n1], ft[OFF + (r - 1) * NSPAN + jm]);
+    }
+    dft4(y[0], y[1], y[2], y[3]);
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1)
+      if (c > 0) y[k1] = cmul(y[k1], W[c * k1]);
+    double2 got[4];                      // got[d]: column (c + d) & 3 at k1 = c
+#pragma unroll
+    for (int d = 0; d < 4; ++d) got[d] = shfl2(pick(y, (c - d) & 3), (c + d) & 3, 4);
+#pragma unroll
+    for (int n2 = 0; n2 < 4; ++n2) b[n2] = pick(got, (n2 - c) & 3);
+    dft4(b[0], b[1], b[2], b[3]);        // bins c + 4 k2
+  }
+  __syncthreads();
+  if (on) {
+    const int base = (j - jm) * R + jm;
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) z[swz(base + (c + 4 * k2) * NSPAN)] = b[k2];
+  }
+  __syncthreads();
+}
+
+template <int NSPAN, int OFF>
+__device__ __forceinline__ void fft_stage15_split(int nseq, double2* buf,
+                                                  const double2* __restrict__ ft) {
+  constexpr int R = 15, M = FH / R;
+  const int i = threadIdx.x, lanes = nseq * M * 8;
+  const bool warp_on = (i & ~31) < lanes, on = i < lanes;
+  const int l = i & 7, bf = on ? i >> 3 : 0;
+  const int q = bf / M, j = bf - q * M, jm = j % NSPAN;
+  double2* z = buf + q * FH;
+  const double2* W = ft + OFF + (R - 1) * NSPAN;
+  double2 b[5];
+  if (warp_on) {
+    const int n2 = min(l, 4), k1 = min(l, 2);
+    double2 a[3];                        // the DFT-3 of points 5 n1 + 3 n2
+#pragma unroll
+    for (int n1 = 0; n1 < 3; ++n1) {
+      const int r = (5 * n1 + 3 * n2) % 15;
+      a[n1] = z[swz(j + r * M)];
+      if (r > 0) a[n1] = cmul(a[n1], ft[OFF + (r - 1) * NSPAN + jm]);
+    }
+    dft3(a[0], a[1], a[2], W[5]);
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+#pragma unroll
+      for (int kk = 0; kk < 3; ++kk) {
+        const double2 t = shfl2(a[kk], m, 8);
+        if (kk == k1) b[m] = t;
+      }
+    dft5(b, W[3], W[6]);
+  }
+  __syncthreads();
+  if (on && l < 3) {
+    const int base = (j - jm) * R + jm;
+#pragma unroll
+    for (int k2 = 0; k2 < 5; ++k2) z[swz(base + ((10 * l + 6 * k2) % 15) * NSPAN)] = b[k2];
+  }
+  __syncthreads();
+}
+
+// Samples n and n + 1 (n even) of an input row: one 8-byte load where the
+// pair is aligned.
+__device__ __forceinline__ float2 load_pair(const float* v) {
+  if ((reinterpret_cast<uintptr_t>(v) & 7) == 0) return *reinterpret_cast<const float2*>(v);
+  return make_float2(v[0], v[1]);
+}
+
+// Both forward spectra of nstr streams by all threads of the block
+// (nstr * FFT_LANES <= blockDim.x, or nstr * 512 with SPLIT; K >= the
+// radix-2 butterflies per thread, nstr * 240 / blockDim.x).  Stream g's
+// X input is [mem | x], whose samples n, n + 1 (n even) lie at xin(g, n),
+// and its P input the pitch window at pin(g).  Each input is windowed in
+// f64 (exact: products of two floats) as complex samples
+// c[m] = w[2m] v[2m] + i w[2m+1] v[2m+1], m < 480, whose 480-point FFT C
+// runs in buf [2 nstr][480] (X's then P's sequence per stream, swizzled,
+// swz).  A last pass makes each bin k <= 480 of the spectrum,
+// V[k] = (C[k] + conj C[-k]) / 2 - i w960^k (C[k] - conj C[-k]) / 2, scales
+// it by 1/960 and rounds it once to f32: store(g, seq, k, re, im) with seq
+// 0 for X and 1 for P.  tw holds the base twiddles (cos, sin)(2 pi m / 960)
+// for m <= 480, ft the FFT table (either in device or shared memory).  Starts after the caller's last barrier on buf; has
+// none after the stores.
+template <bool SPLIT, int K, class XIn, class PIn, class Store>
+__device__ __forceinline__ void fwd_spectra(int nstr, double2* buf,
+                                            const double2* __restrict__ tw,
+                                            const double2* __restrict__ ft,
+                                            const float* __restrict__ window,
+                                            XIn xin, PIn pin, Store store) {
+  constexpr int M0 = FH / FFT_R0;
+  const int nseq = 2 * nstr;
+  // the radix-2 stage: butterfly j of both sequences of a stream per item,
+  // every load of the thread issued before any of its stores
+  const float2* w2 = reinterpret_cast<const float2*>(window);
+  float2 wv[K][2], xv[K][2], pv[K][2];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int i = threadIdx.x + u * blockDim.x;
+    if (i < nstr * M0) {
+      const int g = i / M0, j = i - g * M0;
+      const float* p = pin(g);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = j + h * M0;
+        wv[u][h] = w2[m];
+        xv[u][h] = load_pair(xin(g, 2 * m));
+        pv[u][h] = load_pair(p + 2 * m);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int i = threadIdx.x + u * blockDim.x;
+    if (i < nstr * M0) {
+      const int g = i / M0, j = i - g * M0;
+#pragma unroll
+      for (int seq = 0; seq < 2; ++seq) {
+        const float2* v = seq ? pv[u] : xv[u];
+        const double2 a = make_double2((double)wv[u][0].x * v[0].x, (double)wv[u][0].y * v[0].y);
+        const double2 b = make_double2((double)wv[u][1].x * v[1].x, (double)wv[u][1].y * v[1].y);
+        double2* z = buf + (2 * g + seq) * FH;
+        z[swz(2 * j)] = cadd(a, b);
+        z[swz(2 * j + 1)] = csub(a, b);
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (SPLIT) {
+    fft_stage16_split<FFT_NS1, FFT_OFF1>(nseq, buf, ft);
+    fft_stage15_split<FFT_NS2, FFT_OFF2>(nseq, buf, ft);
+  } else {
+    fft_stage<FFT_R1, FFT_NS1, FFT_OFF1>(nseq, buf, ft);
+    fft_stage<FFT_R2, FFT_NS2, FFT_OFF2>(nseq, buf, ft);
+  }
+  // bin k from a = C[k mod 480] and b = C[-k mod 480]; a thread makes
+  // bins k and 480 - k, which read the same two points
+  const auto bin = [&](int q, int k, double2 a, double2 b) {
+    const double c = 1.0 / (2 * WS);
+    const double2 s = make_double2(a.x + b.x, a.y - b.y);     // C[k] + conj C[-k]
+    const double2 d = make_double2(a.x - b.x, a.y + b.y);     // C[k] - conj C[-k]
+    const double2 t = tw[k];                                   // w960^-k
+    const double2 u = cmul(make_double2(d.y, -d.x), make_double2(t.x, -t.y));
+    store(q >> 1, q & 1, k, (float)((s.x + u.x) * c), (float)((s.y + u.y) * c));
+  };
+  constexpr int NPAIR = FH / 2 + 1;
+  for (int i = threadIdx.x; i < nseq * NPAIR; i += blockDim.x) {
+    const int q = i / NPAIR, k = i - q * NPAIR;
+    const double2* z = buf + q * FH;
+    const double2 a = z[swz(k)], b = z[swz(k == 0 ? 0 : FH - k)];
+    bin(q, k, a, b);
+    if (k != FH / 2) bin(q, FH - k, b, a);
+  }
 }
 
 // The twiddle table (cos, sin)(2 pi m / 960) rounded to f32, into shared

@@ -79,7 +79,8 @@ def analysis_spectral(mem, x, pitch_buf, ds, bp0, bp1, prev_period, prev_gain):
     for name, t in (("bp0", bp0), ("bp1", bp1), ("prev_period", prev_period)):
         kernels.require(t, name, (S,), i32, dev)
     kernels.require(prev_gain, "prev_gain", (S,), f32, dev)
-    window, tw = cuda_spectral.kernel_tables(str(dev))
+    window = cuda_spectral.kernel_tables(str(dev))[0]
+    tw = cuda_spectral.fft_tables(str(dev))
     X = torch.empty((S, 2 * FREQ_SIZE), dtype=f32, device=dev)
     P = torch.empty_like(X)
     T0 = torch.empty((S,), dtype=i32, device=dev)

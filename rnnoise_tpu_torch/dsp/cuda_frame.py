@@ -160,7 +160,8 @@ def process_chunk_monokernel(params, state, pcm: torch.Tensor,
     feats = torch.empty((S, F), dtype=f32, device=dev)
     silence = torch.empty((S,), dtype=torch.uint8, device=dev)
     gains = torch.empty((S, NB), dtype=f32, device=dev)
-    window, tw = cuda_spectral.kernel_tables(str(dev))
+    window = cuda_spectral.kernel_tables(str(dev))[0]
+    tw = cuda_spectral.fft_tables(str(dev))
     d = str(dev)
 
     def ptrs(ts):

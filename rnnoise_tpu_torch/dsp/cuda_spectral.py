@@ -4,8 +4,10 @@ CUDA kernels (``csrc/spectral.cu``) — the port of
 ``inverse_spectral`` and ``postfilter_synthesis``.
 
 Unlike the TPU kernels, which keep a permuted 488-wide bin order, these
-work in natural order: spectra are ``[S, 962]`` re|im.  Each wrapper
-launches its kernel for CUDA tensors and uses its plain version (dense DFT
+work in natural order: spectra are ``[S, 962]`` re|im.  The forward
+spectra are two 480-point f64 FFTs per stream, one per input, planned in
+``fft_plan.py``; the wrapper hands the kernel their twiddle table.  Each
+wrapper launches its kernel for CUDA tensors and uses its plain version (dense DFT
 matmuls from ``transform.py``, in f64 for the forward spectra; the
 post-filter's band arithmetic as ``denoise.py`` ran it) for CPU tensors.
 """
@@ -21,6 +23,7 @@ import torch
 from .. import kernels, tables
 from ..config import (FRAME_SIZE, FREQ_SIZE, NB_BANDS, PITCH_BUF_SIZE,
                       WINDOW_SIZE)
+from . import fft_plan
 from .transform import (device_table, frame_synthesis, per_bin, pitch_filter,
                         windowed_forward_transform, windowed_inverse_transform)
 
@@ -90,6 +93,17 @@ def kernel_tables(device: str):
             torch.from_numpy(tw).to(device))
 
 
+@functools.lru_cache(maxsize=None)
+def fft_tables(device: str) -> torch.Tensor:
+    """The forward kernels' twiddles [960 + 509, 2] f64: kernel_tables'
+    base table, then the FFT's stage twiddles and roots
+    (fft_plan.fft_table).  The inverse and the post-filter read the first
+    960 rows only."""
+    tw = kernel_tables("cpu")[1]
+    plan = torch.from_numpy(fft_plan.fft_table(tw.numpy()))
+    return torch.cat([tw, plan]).to(device)
+
+
 _LIB = None
 
 
@@ -121,7 +135,7 @@ def forward_spectral(mem, x, pitch_buf, start):
     kernels.require(x, "x", (S, FRAME_SIZE), f32, dev)
     kernels.require(pitch_buf, "pitch_buf", (S, PITCH_BUF_SIZE), f32, dev)
     kernels.require(start, "start", (S,), torch.int32, dev)
-    window, tw = kernel_tables(str(dev))
+    window, tw = kernel_tables(str(dev))[0], fft_tables(str(dev))
     X = torch.empty((S, 2 * FREQ_SIZE), dtype=f32, device=dev)
     P = torch.empty_like(X)
     p = kernels.ptr

@@ -8,6 +8,12 @@ exact in f64, so the result hardly depends on the order of the sum, and the
 pitch ranking that reads the table (on ~1e-4 knife edges) sees the same
 values from either.  ``lag_corr_table_kernel`` launches the kernel for CUDA
 tensors and uses :func:`lag_corr_table_plain` for CPU tensors.
+
+The kernel's tile shape (``analysis_body.cuh``: ``LAG_TILE``,
+``TAP_SLICE``), which this module holds too: a thread sums LAGS_PER_THREAD
+consecutive lags over one slice of TAPS_PER_SLICE consecutive taps, in
+ascending tap order; the slices of a lag are then added as
+``((s0 + s1) + (s2 + s3))`` (:func:`lag_tile_partition`).
 """
 
 from __future__ import annotations
@@ -24,6 +30,25 @@ DS_LEN = PITCH_BUF_SIZE // 2             # 864, the decimated pitch buffer
 X_OFF = PITCH_MAX_PERIOD // 2            # 384: x = ds[384 : 864]
 CORR_LEN = PITCH_FRAME_SIZE // 2         # 480
 N_LAGS = PITCH_MAX_PERIOD // 2 + 1       # 385
+LAGS_PER_THREAD = 7
+TAPS_PER_SLICE = 120
+TAP_SLICES = CORR_LEN // TAPS_PER_SLICE  # 4
+SLICE_LANES = 64                         # threads of a slice: two warps
+
+
+def lag_tile_partition():
+    """The kernel's busy threads as (thread, lags, taps): of the
+    TAP_SLICES x SLICE_LANES threads of a stream, thread t owns slice
+    t // SLICE_LANES (TAPS_PER_SLICE consecutive taps, summed in ascending
+    order) and, while t % SLICE_LANES < 55, tile t % SLICE_LANES
+    (LAGS_PER_THREAD consecutive lags)."""
+    out = []
+    for t in range(TAP_SLICES * SLICE_LANES):
+        sl, tile = divmod(t, SLICE_LANES)
+        if tile < N_LAGS // LAGS_PER_THREAD:
+            out.append((t, range(tile * LAGS_PER_THREAD, (tile + 1) * LAGS_PER_THREAD),
+                        range(sl * TAPS_PER_SLICE, (sl + 1) * TAPS_PER_SLICE)))
+    return out
 
 
 def lag_corr_table_plain(ds: torch.Tensor) -> torch.Tensor:

@@ -87,10 +87,14 @@ def inverse_transform(Y: torch.Tensor) -> torch.Tensor:
     return Y @ _device_matrix("inv", False, str(Y.device))
 
 
+def windowed_forward_transform_f64(x: torch.Tensor) -> torch.Tensor:
+    """forward_transform(window * x) in one f64 matmul, not rounded."""
+    return x.float().double() @ _device_matrix("fwd", True, str(x.device))
+
+
 def windowed_forward_transform(x: torch.Tensor) -> torch.Tensor:
     """forward_transform(window * x) in one matmul."""
-    return (x.float().double()
-            @ _device_matrix("fwd", True, str(x.device))).float()
+    return windowed_forward_transform_f64(x).float()
 
 
 def windowed_inverse_transform(Y: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Whether the standalone kernels built from this checkout give the same
-outputs, bit for bit, as those built from another checkout's sources.
+"""The standalone kernels built from this checkout against those built from
+another checkout's sources, on the same inputs: how far their outputs are
+apart, and how long each build takes.
 
     python3 scripts/torch_kernel_bitwise.py --against OTHER/rnnoise_tpu_torch/csrc
 
-Run from the repo root on a CUDA machine.  Builds rnn_step.cu, spectral.cu
-and analysis.cu from both source directories in one nvcc round, then calls
-each of the six standalone kernels (RNN step, forward and inverse spectra,
-post-filter, lag table, analysis) through this checkout's wrappers with each
-build on the same random inputs, at S=1024 and at S=37 (a ragged last
-block), and prints whether every output tensor is equal.  Exits 1 if one
-is not.
+Run from the repo root on a CUDA machine.  Builds rnn_step.cu, spectral.cu,
+analysis.cu and frame.cu from both source directories in one nvcc round,
+then calls each kernel (RNN step, forward and inverse spectra, post-filter,
+lag table, analysis, and the whole-chunk kernel over T=20 frames) through
+this checkout's wrappers with each build on the same random inputs, at
+S=1024 and at S=37 (a ragged last block).  For each it prints the elements
+that differ, the largest difference in f32 ulps (over all elements, and
+over those above 1e-6 of their row's maximum, where an ulp is not noise
+below the row's rounding) and the largest difference relative to the row's
+maximum (the analysis: the streams whose period differs, and the spectra of
+the others; the whole-chunk kernel: PCM in LSB, VAD and the final periods),
+and at S=1024 each build's time per call (chip_smoke.gpu_time: CUDA
+events, the calls back to back on the card), taken in turns (other, this,
+this, other).  Exits 1 if the RNN step, the inverse spectrum or the
+post-filter differ at all: their device code must not change.
 """
 
 import argparse
@@ -22,16 +31,19 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from chip_smoke import SEED, gpu_time, signals  # noqa: E402
 from rnnoise_tpu_torch import kernels  # noqa: E402
-from rnnoise_tpu_torch.config import resolve_device  # noqa: E402
-from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_xcorr, pitch  # noqa: E402
+from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device  # noqa: E402
+from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16  # noqa: E402
+from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr, pitch  # noqa: E402
 from rnnoise_tpu_torch.dsp import cuda_spectral as spec  # noqa: E402
 from rnnoise_tpu_torch.models.rnn import RNNState  # noqa: E402
 from rnnoise_tpu_torch.nn import cuda_rnn  # noqa: E402
 from rnnoise_tpu_torch.weights.loader import load_model_file  # noqa: E402
 
 SOURCES = {"rnn_step": (cuda_rnn,), "spectral": (spec,),
-           "analysis": (cuda_xcorr, cuda_analysis)}
+           "analysis": (cuda_xcorr, cuda_analysis), "frame": (cuda_frame,)}
+STRICT = ("rnn_step", "inverse_spectral", "postfilter_synthesis")
 
 
 def flat(out):
@@ -39,22 +51,73 @@ def flat(out):
     return [u for t in out for u in (t if isinstance(t, tuple) else (t,))]
 
 
-def both_builds(source, fn):
-    """fn() with this checkout's library, then with the other one's."""
-    a = flat(fn())
-    torch.cuda.synchronize()
+def swap(source):
     libs = kernels._LIBS
     libs[source], libs["other_" + source] = libs["other_" + source], libs[source]
     for mod in SOURCES[source]:
         mod._LIB = None
+
+
+def with_other(source, fn):
+    """fn() with the other checkout's library of ``source``."""
+    swap(source)
     try:
-        b = flat(fn())
+        out = fn()
         torch.cuda.synchronize()
+        return out
     finally:
-        libs[source], libs["other_" + source] = libs["other_" + source], libs[source]
-        for mod in SOURCES[source]:
-            mod._LIB = None
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+        swap(source)
+
+
+def ulps(a, b):
+    """|a - b| in f32 ulps, elementwise (a and b f32 of one shape)."""
+    def key(x):
+        i = x.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def float_diff(xs, ys):
+    """(elements differing, their count, largest ulp difference, largest
+    ulp difference among elements above 1e-6 of their row's maximum,
+    largest |difference| / row maximum) over pairs of f32 tensors."""
+    n = tot = 0
+    worst = big = 0
+    rel = 0.0
+    for x, y in zip(xs, ys):
+        x2, y2 = x.reshape(x.shape[0], -1), y.reshape(y.shape[0], -1)
+        u = ulps(x2, y2)
+        top = y2.abs().amax(1, keepdim=True).clamp(min=1e-30)
+        n += int((u > 0).sum())
+        tot += u.numel()
+        worst = max(worst, int(u.max()) if u.numel() else 0)
+        sel = u[y2.abs() >= 1e-6 * top]
+        big = max(big, int(sel.max()) if sel.numel() else 0)
+        rel = max(rel, float(((x2 - y2).abs() / top).max()) if u.numel() else 0.0)
+    return (f"{n} of {tot} elements differ, by at most {worst} ulp ({big} ulp above "
+            f"1e-6 of the row's maximum, {rel:.2e} of the row's maximum)"), n == 0
+
+
+def compare(name, a, b):
+    """(summary text, equal) of this build's outputs a against the other's."""
+    if name == "analysis_spectral":
+        X, P, T0, gain = a
+        oX, oP, oT0, ogain = b
+        same = T0 == oT0
+        text, equal = float_diff((X[same], P[same], gain[same, None]),
+                                 (oX[same], oP[same], ogain[same, None]))
+        return (f"T0 differs in {int((~same).sum())} of {len(T0)} streams; over the "
+                f"others, of X, P and gain: {text}"), equal and bool(same.all())
+    if name == "process_chunk_monokernel":
+        st, out, vad = a
+        ost, oout, ovad = b
+        pcm = int((out.int() - oout.int()).abs().max())
+        per = int((st.last_period != ost.last_period).sum())
+        dv = float((vad - ovad).abs().max())
+        return (f"PCM {int((out != oout).sum())} of {out.numel()} samples differ, by at "
+                f"most {pcm} LSB; VAD by at most {dv:.3e}; {per} final periods differ"), \
+            pcm == 0 and per == 0 and dv == 0.0
+    return float_diff(flat(a), flat(b))
 
 
 def main():
@@ -78,21 +141,31 @@ def main():
 
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=g, device=dev)
-    same = True
+    strict_ok = True
     for S in (1024, 37):
         feats = rnd(S, 65)
         st = RNNState(*(torch.tanh(rnd(S, w)) for w in (130, 256, 384, 384, 384)))
         sil = torch.rand(S, generator=g, device=dev) < 0.2
         mem, x, pbuf = rnd(S, 480, scale=3e3), rnd(S, 480, scale=3e3), rnd(S, 1728, scale=3e3)
+        mem[0], x[0], pbuf[0] = 1e-4 * mem[0], 1e-4 * x[0], 1e-4 * pbuf[0]
         start = torch.randint(0, 709, (S,), generator=g, device=dev, dtype=torch.int32)
         X, P = spec.forward_spectral(mem, x, pbuf, start)
         Ex = torch.rand(S, 32, generator=g, device=dev)
         post = (X, P, Ex, *(torch.rand(S, 32, generator=g, device=dev) for _ in range(4)),
                 1.3 * Ex, torch.arange(S, device=dev) % 5 == 0, rnd(S, 480))
-        ds = pitch.pitch_downsample(pbuf)
+        # the analysis' inputs from a real decimation and coarse search
+        seq = signals(S, 5, dev, SEED + 3, quiet=range(0, S, 16)).float()
+        seq = seq.transpose(0, 1).reshape(S, -1)
+        buf = seq[:, -1728:].contiguous()
+        ds = pitch.pitch_downsample(buf)
         bp0, bp1 = pitch.coarse_search(ds)
         prev = torch.randint(60, 700, (S,), generator=g, device=dev, dtype=torch.int32)
-        an = (mem, x, pbuf, ds, bp0, bp1, prev, torch.rand(S, generator=g, device=dev))
+        an = (buf[:, -960:-480].contiguous(), buf[:, -480:].contiguous(), buf, ds,
+              bp0, bp1, prev, torch.rand(S, generator=g, device=dev))
+        pcm = signals(S, 30, dev, SEED + 4, quiet=range(0, S, 16))
+        warm, _, _ = process_frames_tm_i16(params, init_state(S, device=dev), pcm[:10],
+                                           CONFIGURATIONS["fused"])
+        chunk = pcm[10:].contiguous()
         for name, source, fn in (
                 ("rnn_step", "rnn_step",
                  lambda: cuda_rnn.compute_rnn_step(params, st, feats, sil)),
@@ -104,11 +177,27 @@ def main():
                 ("lag_corr_table", "analysis",
                  lambda: cuda_xcorr.lag_corr_table_kernel(ds)),
                 ("analysis_spectral", "analysis",
-                 lambda: cuda_analysis.analysis_spectral(*an))):
-            ok = both_builds(source, fn)
-            same = same and ok
-            print(f"S={S} {name}: bitwise {'equal' if ok else 'DIFFERENT'}", flush=True)
-    return 0 if same else 1
+                 lambda: cuda_analysis.analysis_spectral(*an)),
+                ("process_chunk_monokernel", "frame",
+                 lambda: cuda_frame.process_chunk_monokernel(params, warm, chunk))):
+            mine = fn()
+            torch.cuda.synchronize()
+            text, equal = compare(name, mine, with_other(source, fn))
+            if name in STRICT:
+                strict_ok = strict_ok and equal
+                text += " (must be bitwise equal)"
+            print(f"S={S} {name}: {text}", flush=True)
+            if S == 1024:
+                reps = 5 if name == "process_chunk_monokernel" else 20
+                t_o = [with_other(source, lambda: gpu_time(fn, reps))]
+                t_m = [gpu_time(fn, reps), gpu_time(fn, reps)]
+                t_o.append(with_other(source, lambda: gpu_time(fn, reps)))
+                print(f"S={S} {name}: other build {sum(t_o) / 2:.4f} ms ({t_o[0]:.4f}, "
+                      f"{t_o[1]:.4f}), this build {sum(t_m) / 2:.4f} ms ({t_m[0]:.4f}, "
+                      f"{t_m[1]:.4f})", flush=True)
+    print("strict kernels bitwise equal" if strict_ok
+          else "STRICT KERNELS DIFFER", flush=True)
+    return 0 if strict_ok else 1
 
 
 if __name__ == "__main__":

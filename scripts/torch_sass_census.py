@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Count the machine instructions of the port's kernels by kind, from the
+SASS that nvcc compiles for sm_90a, for this checkout's sources and,
+optionally, another checkout's.
+
+    python3 scripts/torch_sass_census.py [--against OTHER/rnnoise_tpu_torch/csrc]
+
+Run on a machine with the CUDA toolkit (nvcc and cuobjdump).  Compiles each
+csrc/*.cu to a cubin, disassembles it with cuobjdump -sass and prints, per
+kernel, the static count of the f64 arithmetic (DFMA, DADD, DMUL), the
+conversions to and from f64 (F2F), the shared and device memory accesses
+(LDS, STS, LDG, STG), the shuffles and the barriers.  Static counts say
+what a loop body holds, not how often it runs: read them beside the
+kernel's own loop structure.
+"""
+
+import argparse
+import collections
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from rnnoise_tpu_torch import kernels  # noqa: E402
+
+KINDS = ("DFMA", "DADD", "DMUL", "F2F", "LDS", "STS", "LDG", "STG", "SHFL", "BAR")
+KERNELS = ("rnn_step_kernel", "forward_kernel", "inverse_kernel", "postfilter_kernel",
+           "xcorr_kernel", "analysis_kernel", "chunk_kernel")
+
+
+def census(cu_path, workdir):
+    """{kernel name: Counter of instruction kinds} of one source."""
+    cubin = os.path.join(workdir, os.path.basename(cu_path) + ".cubin")
+    subprocess.run([kernels.nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-o", cubin, cu_path], check=True)
+    exe = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    sass = subprocess.run([exe, "-sass", cubin], check=True, capture_output=True,
+                          text=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = next((k for k in KERNELS if k in m.group(1)), m.group(1))
+            out[name] = collections.Counter()
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m and name is not None:
+            op = m.group(1)
+            for kind in KINDS:
+                if op.startswith(kind):
+                    out[name][kind] += 1
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", help="another checkout's rnnoise_tpu_torch/csrc")
+    a = ap.parse_args()
+    trees = [("this", kernels.CSRC_DIR)] + ([("other", a.against)] if a.against else [])
+    with tempfile.TemporaryDirectory() as work:
+        for label, tree in trees:
+            for src in kernels.KERNEL_SOURCES:
+                d = os.path.join(work, label)
+                os.makedirs(d, exist_ok=True)
+                for name, counts in census(os.path.join(tree, src + ".cu"), d).items():
+                    print(f"{label} {src}.cu {name}: "
+                          + " ".join(f"{k}={counts[k]}" for k in KINDS), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -98,6 +98,57 @@ def test_lag_corr_table_kernel(dev):
     assert _rel(got, cuda_xcorr.lag_corr_table_plain(ds)) <= 1e-6
 
 
+@pytest.mark.parametrize("S", [1, 13, 37])
+def test_forward_spectral_kernel_ragged(dev, S):
+    """The FFT kernel at ragged S (a block of 2 streams with its tail
+    masked), stream 0 near-silent, the window starts at both ends; bins 0,
+    240 and 480 on their own."""
+    g = torch.Generator(device=dev).manual_seed(20 + S)
+    mem, x = (3000 * torch.randn(S, 480, generator=g, device=dev) for _ in range(2))
+    pbuf = 3000 * torch.randn(S, 1728, generator=g, device=dev)
+    mem[0], x[0], pbuf[0] = 1e-4 * mem[0], 1e-4 * x[0], 1e-4 * pbuf[0]
+    start = torch.randint(0, 769, (S,), generator=g, device=dev, dtype=torch.int32)
+    start[0] = 768
+    start[-1] = 0
+    before = spec.forward_spectral.launches
+    kX, kP = spec.forward_spectral(mem, x, pbuf, start)
+    assert spec.forward_spectral.launches == before + 1
+    pX, pP = spec.forward_spectral_plain(mem, x, pbuf, start)
+    for k, p in ((kX, pX), (kP, pP)):
+        assert _rel(k, p) <= 1e-4
+        top = p.abs().amax(1)
+        for b in (0, 240, 480):
+            cols = [b, 481 + b]
+            assert float(((k[:, cols] - p[:, cols]).abs().amax(1) / top).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("S", [1, 13, 37])
+def test_lag_corr_table_kernel_ragged(dev, S):
+    """The tiled lag table at ragged S (blocks of 2 streams), stream 0
+    near-silent."""
+    g = torch.Generator(device=dev).manual_seed(30 + S)
+    ds = 300 * torch.randn(S, 864, generator=g, device=dev)
+    ds[0] *= 1e-4
+    got = cuda_xcorr.lag_corr_table_kernel(ds)
+    assert _rel(got, cuda_xcorr.lag_corr_table_plain(ds)) <= 1e-6
+
+
+@pytest.mark.parametrize("S", [1, 13, 37])
+def test_analysis_spectra_equal_forward_spectral(dev, S):
+    """At odd S, with a near-silent stream: the analysis' X and P are the
+    forward-spectrum kernel's bit for bit at the resolved period."""
+    pcm = torch.from_numpy(_signal(np.random.default_rng(40 + S), S, 8)).to(dev).float()
+    pbuf = pcm[-4:].transpose(0, 1).reshape(S, -1)[:, -1728:].contiguous()
+    mem, x = pbuf[:, -960:-480], pbuf[:, -480:]
+    ds = pitch.pitch_downsample(pbuf)
+    bp0, bp1 = pitch.coarse_search(ds)
+    prev_p = torch.full((S,), 200, device=dev, dtype=torch.int32)
+    kX, kP, kT, _ = cuda_analysis.analysis_spectral(
+        mem, x, pbuf, ds, bp0, bp1, prev_p, torch.full((S,), 0.5, device=dev))
+    fX, fP = spec.forward_spectral(mem, x, pbuf, 1728 - 960 - kT)
+    assert torch.equal(kX, fX) and torch.equal(kP, fP)
+
+
 def test_analysis_kernel(dev):
     """Inputs from a real decimation and coarse search, so the ladder takes
     real branches; X and P equal the forward-spectrum kernel's at the
