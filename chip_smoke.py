@@ -12,8 +12,10 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              the whole-chunk kernel over T=20 frames from a warm state),
              timed beside the plain version and, where one exists, one
              PyTorch library call (gpu_time: the calls back to back on the
-             card); the forward spectra, the lag table and the analysis
-             also print the f64 floor of their own design's arithmetic.
+             card), and the kernel's wrapper again as the host issues it
+             (``host_ms``, its time to enqueue included); the forward
+             spectra, the lag table and the analysis also log the f64
+             floor of their own design's arithmetic.
 3. main    — for each kernel configuration of process_frames_tm_i16
              (config.CONFIGURATIONS: scan, xcorr, fused, mono): S=1024, two
              chained calls of T=100 frames (T=50 for scan and xcorr, the slow
@@ -73,22 +75,25 @@ def check(ok, what):
         raise Failure(what)
 
 
-def gpu_time(fn, reps=20):
-    """Milliseconds per call by CUDA events, after two warm-up calls.  The
-    card is held busy (``torch.cuda._sleep``, twice the host's time to
-    enqueue the calls, at most a second) while the host enqueues them, so
-    that the events time the calls back to back on the device, not the
-    host's launch overhead; a call that waits on the device itself is timed
-    with its waits."""
+def gpu_time(fn, reps=20, hold=True):
+    """Milliseconds per call by CUDA events, after two warm-up calls.  With
+    ``hold`` the card is held busy (``torch.cuda._sleep``, twice the host's
+    time to enqueue the calls, at most a second) while the host enqueues
+    them, so that the events time the calls back to back on the device, not
+    the host's launch overhead; a call that waits on the device itself is
+    timed with its waits.  Without it the events time the calls as the host
+    issues them, its time to enqueue each call included where that is the
+    longer (a record's ``host_ms``)."""
     import torch
     fn()
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(2 * reps * host, 1.0) * SLEEP_CYCLES_PER_S))
+    if hold:
+        t0 = time.perf_counter()
+        fn()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(2 * reps * host, 1.0) * SLEEP_CYCLES_PER_S))
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
@@ -210,6 +215,7 @@ def main():
         replaces="rnnoise_tpu/nn/pallas_rnn.py:162",
         max_abs_err=rnn_err,
         ms=gpu_time(lambda: cuda_rnn.compute_rnn_step(params, st, feats, sil)),
+        host_ms=gpu_time(lambda: cuda_rnn.compute_rnn_step(params, st, feats, sil), hold=False),
         plain_ms=gpu_time(lambda: cuda_rnn.compute_rnn_plain(params, st, feats, sil)),
         bound_ms=1e3 * max(rnn_bytes / MEM_BW, rnn_t_ops),
         bound_by="bytes" if rnn_bytes / MEM_BW >= rnn_t_ops else "operations",
@@ -236,10 +242,10 @@ def main():
         replaces="rnnoise_tpu/dsp/pallas_spectral.py:388",
         max_abs_err=float(max((kX - pX).abs().max(), (kP - pP).abs().max())),
         ms=gpu_time(lambda: spec.forward_spectral(mem, x, pbuf, start)),
+        host_ms=gpu_time(lambda: spec.forward_spectral(mem, x, pbuf, start), hold=False),
         plain_ms=gpu_time(lambda: spec.forward_spectral_plain(mem, x, pbuf, start)),
         bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-        library_ms=gpu_time(lambda: torch.fft.rfft(both, dim=-1)),
-        f64_floor_ms=1e3 * S * fft_plan.f64_ops_per_stream() / F64_RATE)
+        library_ms=gpu_time(lambda: torch.fft.rfft(both, dim=-1)))
 
     Y = kX
     k_out = spec.inverse_spectral(Y)
@@ -255,6 +261,7 @@ def main():
         replaces="rnnoise_tpu/dsp/pallas_spectral.py:538",
         max_abs_err=float((k_out - p_out).abs().max()),
         ms=gpu_time(lambda: spec.inverse_spectral(Y)),
+        host_ms=gpu_time(lambda: spec.inverse_spectral(Y), hold=False),
         plain_ms=gpu_time(lambda: spec.inverse_spectral_plain(Y)),
         bound_ms=inv_bound[0], bound_by=inv_bound[1],
         library_ms=gpu_time(lambda: torch.fft.irfft(Yc, n=960, dim=-1)))
@@ -291,10 +298,10 @@ def main():
         replaces="rnnoise_tpu/dsp/pallas_xcorr.py:150",
         max_abs_err=float((bx_k - bx_p).abs().max()),
         ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_kernel(ds)),
+        host_ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_kernel(ds), hold=False),
         plain_ms=gpu_time(lambda: cuda_xcorr.lag_corr_table_plain(ds)),
         bound_ms=xc_bound[0], bound_by=xc_bound[1],
-        library_ms=gpu_time(lambda: pitch.batched_xcorr(x_win, ds, 385)),
-        f64_floor_ms=1e3 * S * LAG_F64_OPS / F64_RATE)
+        library_ms=gpu_time(lambda: pitch.batched_xcorr(x_win, ds, 385)))
 
     kX, kP, kT, kg = cuda_analysis.analysis_spectral(*a_args)
     pX, pP, pT, pg = cuda_analysis.analysis_spectral_plain(*a_args)
@@ -326,11 +333,10 @@ def main():
         max_abs_err=float(max((kX - pX)[same].abs().max(), (kP - pP)[same].abs().max(),
                               an_gain_err)),
         ms=gpu_time(lambda: cuda_analysis.analysis_spectral(*a_args)),
+        host_ms=gpu_time(lambda: cuda_analysis.analysis_spectral(*a_args), hold=False),
         plain_ms=gpu_time(lambda: cuda_analysis.analysis_spectral_plain(*a_args)),
         bound_ms=an_bound[0], bound_by=an_bound[1],
-        library_ms=None,
-        f64_floor_ms=1e3 * S * (2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream())
-        / F64_RATE)
+        library_ms=None)
 
     # the post-filter's inputs: the analysed spectrum, that of a noisier
     # pitch window, random gains, every 8th stream silent
@@ -372,6 +378,7 @@ def main():
         replaces="rnnoise_tpu/dsp/pallas_spectral.py:489",
         max_abs_err=float(max((a - b).abs().max() for a, b in zip(k_post, p_post))),
         ms=gpu_time(lambda: spec.postfilter_synthesis(*p_args)),
+        host_ms=gpu_time(lambda: spec.postfilter_synthesis(*p_args), hold=False),
         plain_ms=gpu_time(lambda: spec.postfilter_synthesis_plain(*p_args)),
         bound_ms=post_bound[0], bound_by=post_bound[1],
         library_ms=None)
@@ -422,6 +429,8 @@ def main():
         replaces="rnnoise_tpu/dsp/pallas_frame.py:865",
         max_abs_err=float(max(mono_pcm_err, mono_vad_err, mono_g_err)),
         ms=mono_ms, ms_per_frame=mono_ms / T_MONO,
+        host_ms=gpu_time(lambda: cuda_frame.process_chunk_monokernel(
+            params, warm, chunk20), reps=5, hold=False),
         plain_ms=gpu_time(lambda: cuda_frame.process_chunk_monokernel_plain(
             params, warm, chunk20), reps=2),
         bound_ms=1e3 * max(mono_bytes / MEM_BW, mono_t_ops),
@@ -431,11 +440,19 @@ def main():
         f"frames ({mono_ms / T_MONO:.4f} ms per frame), plain {mono_rec['plain_ms']:.1f} ms, "
         f"bound {mono_rec['bound_ms']:.4f} ms ({mono_rec['bound_by']})")
 
+    # the f64 floor of each redesigned span's own arithmetic, a figure of its
+    # design (fft_plan's and the lag tile's operation counts at F64_RATE),
+    # logged beside the measured times and not part of the kernels line
+    f64_floor_ms = {"forward_spectral": fft_plan.f64_ops_per_stream(),
+                    "lag_corr_table": LAG_F64_OPS,
+                    "analysis_spectral": 2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream()}
     for rec in (fwd_rec, xc_rec, an_rec):
-        log(f"[kernels] {rec['name']} {rec['ms']:.4f} ms, library "
+        floor_ms = 1e3 * S * f64_floor_ms[rec["name"]] / F64_RATE
+        log(f"[kernels] {rec['name']} {rec['ms']:.4f} ms (host-inclusive "
+            f"{rec['host_ms']:.4f} ms), library "
             f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
             f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), f64 floor of "
-            f"its design {rec['f64_floor_ms']:.4f} ms")
+            f"its design {floor_ms:.4f} ms")
     counted = ((rnn_rec, cuda_rnn.compute_rnn_step),
                (fwd_rec, spec.forward_spectral), (inv_rec, spec.inverse_spectral),
                (xc_rec, cuda_xcorr.lag_corr_table_kernel),

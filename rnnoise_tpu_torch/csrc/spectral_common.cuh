@@ -2,14 +2,15 @@
 // spectral.cu (forward and inverse spectra, post-filter and synthesis),
 // analysis.cu (pitch analysis and both forward spectra) and frame.cu.
 //
-// Forward: a stream's two windowed inputs are packed as one complex
-// sequence (X's input real, P's imaginary), transformed by one complex
-// 960-point f64 FFT in shared memory (mixed-radix Stockham stages of
-// radix 4, 16 and 15, the last two in place, with twiddles and roots from an
-// exact f64 table, dsp/fft_plan.py), and the two spectra separated from it; each bin is rounded once to f32.  The spectra
-// feed knife-edge decisions, so these sums must round as the f64 DFT matmul
-// of the plain versions does: an f64 FFT's error (~1e-16 of the row) moves
-// the f32 result by an ulp at most, and rarely.
+// Forward: each of a stream's two windowed real inputs is transformed as
+// one complex 480-point sequence (its even samples real, its odd
+// imaginary) by an f64 FFT in shared memory: Stockham stages of radix 2,
+// 16 and 15 with twiddles and roots from an exact f64 table
+// (dsp/fft_plan.py), then a last pass that forms the 481 bins of the real
+// spectrum (see FH and fwd_spectra below); each bin is rounded once to
+// f32.  The spectra feed knife-edge decisions, so these sums must round as
+// the f64 DFT matmul of the plain versions does: an f64 FFT's error
+// (~1e-16 of the row) moves the f32 result by an ulp at most, and rarely.
 //
 // Inverse: outputs n and n+480 come from one pass over the bin pairs
 // (2m, 2m+1) as E+O and E-O, in f32 with twiddles by f32 rotation, reloaded

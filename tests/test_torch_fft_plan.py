@@ -90,13 +90,27 @@ def emulate_forward_spectral(mem, x, pbuf, start):
     return emulate_spectrum(np.concatenate([mem, x], 1)), emulate_spectrum(p)
 
 
+def _table_rows(radices):
+    """Rows of the FFT table for these radices, as the kernel source sizes
+    it: each stage after the first has (R - 1) x Ns twiddles, then R roots."""
+    ns, rows = radices[0], 0
+    for R in radices[1:]:
+        rows += (R - 1) * ns + R
+        ns *= R
+    return rows
+
+
 def test_radices_match_kernel_source():
     src = _source("spectral_common.cuh")
     got = dict((int(i), int(r)) for i, r in re.findall(r"FFT_R(\d) = (\d+)", src))
-    assert tuple(got[i] for i in range(len(got))) == fft_plan.FFT_RADICES
+    radices = tuple(got[i] for i in range(len(got)))
+    assert radices == fft_plan.FFT_RADICES
     assert int(np.prod(fft_plan.FFT_RADICES)) == fft_plan.H == N // 2
-    size = int(re.search(r"FFT_TABLE = .*// (\d+)", src).group(1))
-    assert fft_plan.fft_table(spec.kernel_tables("cpu")[1].numpy()).shape == (size, 2)
+    # the kernel sizes its table from the same radices, one stage at a time
+    assert re.search(r"FFT_OFF2 = FFT_OFF1 \+ fft_stage_size\(FFT_R1, FFT_NS1\),\s*"
+                     r"FFT_TABLE = FFT_OFF2 \+ fft_stage_size\(FFT_R2, FFT_NS2\);", src)
+    rows = _table_rows(radices)
+    assert fft_plan.fft_table(spec.kernel_tables("cpu")[1].numpy()).shape == (rows, 2)
 
 
 def test_fft_tables_extend_the_base_table():
@@ -105,7 +119,8 @@ def test_fft_tables_extend_the_base_table():
     quarter turns."""
     base = spec.kernel_tables("cpu")[1]
     full = spec.fft_tables("cpu")
-    assert full.dtype == torch.float64 and full.shape == (N + 509, 2)
+    assert full.dtype == torch.float64 \
+        and full.shape == (N + _table_rows(fft_plan.FFT_RADICES), 2)
     assert torch.equal(full[:N], base)
     plan = full[N:].numpy()
     np.testing.assert_allclose(np.hypot(plan[:, 0], plan[:, 1]), 1.0, atol=1e-15)
