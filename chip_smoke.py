@@ -14,8 +14,8 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              PyTorch library call (gpu_time: the calls back to back on the
              card), and the kernel's wrapper again as the host issues it
              (``host_ms``, its time to enqueue included); the forward
-             spectra, the lag table and the analysis also log the f64
-             floor of their own design's arithmetic.
+             and inverse spectra, the lag table and the analysis also log
+             the f64 floor of their own design's arithmetic.
 3. main    — for each kernel configuration of process_frames_tm_i16
              (config.CONFIGURATIONS: scan, xcorr, fused, mono): S=1024, two
              chained calls of T=100 frames (T=50 for scan and xcorr, the slow
@@ -444,9 +444,10 @@ def main():
     # design (fft_plan's and the lag tile's operation counts at F64_RATE),
     # logged beside the measured times and not part of the kernels line
     f64_floor_ms = {"forward_spectral": fft_plan.f64_ops_per_stream(),
+                    "inverse_spectral": fft_plan.inverse_f64_ops_per_stream(),
                     "lag_corr_table": LAG_F64_OPS,
                     "analysis_spectral": 2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream()}
-    for rec in (fwd_rec, xc_rec, an_rec):
+    for rec in (fwd_rec, inv_rec, xc_rec, an_rec):
         floor_ms = 1e3 * S * f64_floor_ms[rec["name"]] / F64_RATE
         log(f"[kernels] {rec['name']} {rec['ms']:.4f} ms (host-inclusive "
             f"{rec['host_ms']:.4f} ms), library "

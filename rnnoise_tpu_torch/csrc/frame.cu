@@ -33,19 +33,21 @@
 //
 // What bounds it: operations.  Per stream and frame it does ~0.5M f64
 // operations (the lag table and energies 2 x 385 x 480 multiply-adds, the
-// two spectra's FFTs ~44 k, the biquad's Toeplitz term 480 x 479 / 2
-// multiply-adds) and reads the network's ~3 MB of weights once per block,
-// against ~25 KB of state per stream, read and written once a chunk, and
-// 2 KB of PCM per stream and frame in device memory.  The design: a block owns G = 8 streams for all
+// two forward spectra's FFTs ~44 k and the inverse's ~21 k, the biquad's
+// Toeplitz term 480 x 479 / 2 multiply-adds) and reads the network's
+// ~1.4 MB of weights (the int8 matrices' nonzero blocks and the f32
+// weights, rnn_step.cu) once per block, against ~25 KB of state per
+// stream, read and written once a chunk, and 2 KB of PCM per stream and
+// frame in device memory.  The design: a block owns G = 8 streams for all
 // T frames, so streams never synchronise across blocks and there is one
 // launch per chunk (the fused configuration makes ~480 per frame,
-// PERF.md).  G = 8 is the RNN step's own stream block: its dp4a
-// loops read each weight once for 8 streams, and at S = 1024 it gives 128
-// blocks for the H100's 132 SMs.  Within a block the per-stream spans (1-6,
-// 8) take the 8 streams one after another on all 512 threads (the
-// analysis's block), and the network takes the 8 together.  That keeps one
-// block per SM with 16 warps, so the f64 and dp4a issue rates are far from
-// full: this is the simple design, and the one to make fast later.
+// PERF.md).  G = 8 is the RNN step's own stream block: its products read
+// each weight once for 8 streams, and at S = 1024 it gives 128 blocks for
+// the H100's 132 SMs.  Within a block the per-stream spans (1-6, 8) take
+// the 8 streams one after another on all 512 threads (the analysis's
+// block), and the network takes the 8 together.  That keeps one block per
+// SM with 16 warps, so the f64 issue rate is far from full: this is the
+// simple design, and the one to make fast later.
 //
 // State: the block copies its streams' input state into the output state at
 // t = 0 and then updates it there; the caller's state is only read.  The
@@ -86,10 +88,10 @@ struct ChunkArgs {
   const int16_t* pcm; int16_t* out; float* vad;
   float* xp; float* feats; uint8_t* silence; float* gains;   // scratch
   const float* conv1_w; const float* conv1_b;
-  const int* conv2_w; const float* conv2_scale; const float* conv2_b;
-  const int* gru_in_w; const float* gru_in_scale; const float* gru_in_b;
-  const int* gru_rec_w; const float* gru_rec_scale; const float* gru_rec_b;
-  const float* gru_diag;
+  const int* q_w; const int* q_k; const int* q_sched;
+  const float* conv2_scale; const float* conv2_b;
+  const float* gru_in_scale; const float* gru_in_b;
+  const float* gru_rec_scale; const float* gru_rec_b; const float* gru_diag;
   const float* heads_w; const float* heads_b;
   const double* hp_k; const double* hp_rowA; const double* hp_SA;
   const double* hp_SB;
@@ -107,6 +109,7 @@ using namespace rnnt;
 constexpr int G = RNN_G;                  // streams per block
 constexpr int THREADS = ANALYSIS_THREADS;  // 512
 constexpr int NWARPS = THREADS / 32;
+static_assert(NWARPS == RNN_WARPS, "the network's step is split over the block's warps");
 constexpr int NC = 147;                   // coarse lags
 constexpr int LEN4 = 240;                 // coarse correlation length
 constexpr int NFEAT = 2 * NB + 1;         // 65 features
@@ -436,9 +439,10 @@ __global__ void __launch_bounds__(THREADS, 1) chunk_kernel(const ChunkArgs a) {
 
     const RnnArgs ra{a.feats, a.silence, rd.conv1_mem, rd.conv2_mem,
                      {rd.gru[0], rd.gru[1], rd.gru[2]},
-                     a.conv1_w, a.conv1_b, a.conv2_w, a.conv2_scale, a.conv2_b,
-                     a.gru_in_w, a.gru_in_scale, a.gru_in_b,
-                     a.gru_rec_w, a.gru_rec_scale, a.gru_rec_b, a.gru_diag,
+                     a.conv1_w, a.conv1_b, a.q_w, a.q_k, a.q_sched,
+                     a.conv2_scale, a.conv2_b,
+                     a.gru_in_scale, a.gru_in_b, a.gru_rec_scale, a.gru_rec_b,
+                     a.gru_diag,
                      a.heads_w, a.heads_b,
                      wr.conv1_mem, wr.conv2_mem, {wr.gru[0], wr.gru[1], wr.gru[2]},
                      a.gains, a.vad + (size_t)t * a.S,

@@ -23,16 +23,18 @@ __device__ __forceinline__ float band_dot(const float* __restrict__ m,
 }
 
 // The delayed frame's post-filter and synthesis for one stream, by a block
-// of at least FS threads.  The band arithmetic uses the _rn intrinsics, so it
+// of at least 256 threads in whole warps (the inverse FFT's split stages).  The band arithmetic uses the _rn intrinsics, so it
 // rounds as the plain version's elementwise operators do; the per-bin
 // interpolations (interp [32, 481]) and the band energies (band [481, 32])
 // are f32 dot products in their own order.  Per-stream pointers: X, P [962]
 // the delayed spectra, dEx, dEp, dExp, g, lastg, Ex [32], smem [480] the
 // synthesis memory; lastg_out and smem_out may be lastg and smem.  Output
-// sample n < 480 goes to store(n, value).
+// sample n < 480 goes to store(n, value).  The inverse spectrum is
+// inv_spectra's f64 FFT with its butterflies split over lanes (a block of at
+// least 256 threads, whole warps); tw is the base table extended by the FFT
+// table (cuda_spectral.fft_tables), in device memory.
 struct __align__(16) PostSmem {
-  float4 y[1][MI];
-  float2 tw[WS];
+  double2 fft[FH];
   float re[NBIN], im[NBIN], e2[NBIN];
   float r[NB], gc[NB], norm[NB];
 };
@@ -46,7 +48,6 @@ __device__ __forceinline__ void postfilter_body(
     const float* __restrict__ window, const double2* __restrict__ tw,
     Store store, float* smem_out, float* lastg_out) {
   const int tid = threadIdx.x;
-  load_twiddles_f32(sm.tw, tw);
   if (tid < NB) {
     const int i = tid;
     const float ex = dEx[i], ep = dEp[i], exp_ = dExp[i], gb = g[i];
@@ -99,16 +100,17 @@ __device__ __forceinline__ void postfilter_body(
     }
   }
   __syncthreads();
-  for (int m = tid; m < MI; m += blockDim.x) sm.y[0][m] = inv_pair(sm.re, sm.im, m);
-  __syncthreads();
-
-  const int n = tid;
-  if (n < FS) {
-    float e[1], o[1];
-    inv_sums<1>(sm.y, sm.tw, n, e, o);
-    store(n, __fadd_rn(__fmul_rn(window[n], __fadd_rn(e[0], o[0])), smem[n]));
-    smem_out[n] = __fmul_rn(window[n + FS], __fsub_rn(e[0], o[0]));
-  }
+  // the windowed inverse, then the overlap-add: a thread reads smem[n] before
+  // it writes smem_out[n] (which may be the same memory)
+  inv_spectra<true>(
+      1, sm.fft, tw, tw + WS, window,
+      [&](int, int k) { return make_float2(sm.re[k], sm.im[k]); },
+      [&](int, int n, float2 lo, float2 hi) {
+        store(n, __fadd_rn(lo.x, smem[n]));
+        store(n + 1, __fadd_rn(lo.y, smem[n + 1]));
+        smem_out[n] = hi.x;
+        smem_out[n + 1] = hi.y;
+      });
 }
 
 }  // namespace rnnt

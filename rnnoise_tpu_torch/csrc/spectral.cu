@@ -33,14 +33,14 @@
 // the price of spills, inputs double-buffered by cp.async), this was the
 // fastest at S = 1024; the lane-split butterflies of the analysis took 3x
 // as long.  The twiddles come from an f64 table built in Python
-// (dsp/fft_plan.py) and appended to the 960 base twiddles, so the
-// `twiddles` argument keeps its meaning for the inverse and the post-filter.
-// The inverse is a direct DFT, 481 x 960 multiply-adds per spectrum against
-// 8 KB of input and output, so its issue rate bounds it.  Its twiddles
-// indexed by (n*k) mod 960 would hit shared-memory banks unevenly, so it
-// makes them by rotation in registers instead, halves the work with the
-// (-1)^k symmetry of samples n and n+480, and lets one twiddle serve 4
-// streams.
+// (dsp/fft_plan.py) and appended to the 960 base twiddles; every kernel here
+// takes that extended table.
+// The inverse moves ~7.7 KB a stream and, as one 480-point complex f64 FFT
+// of the forward's stages (spectral_common.cuh:inv_spectra), does ~22 k f64
+// operations, so it is shaped as the forward kernel: a block of 128 threads
+// takes 4 streams (one sequence each, the same 46 KB of shared memory), a
+// whole butterfly a thread.  The post-filter runs the same arithmetic with
+// its butterflies split over lanes, as the analysis does.
 //
 // The forward spectra feed the pitch, band-energy and silence decisions,
 // which sit on knife edges: a 2e-6 difference in X flips an int8 activation
@@ -48,9 +48,11 @@
 // long.  So the forward kernel windows and transforms in f64 and rounds each
 // bin once to f32, as its plain version (an f64 DFT matmul) does; the two
 // then agree to an ulp.  The inverse and the post-filter only shape the
-// output (nothing after them decides on a threshold but the int16 rounding),
-// so they sum in f32 with FMA and agree with their plain versions to a few
-// 1e-6 of each row's largest magnitude.
+// output (nothing after them decides on a threshold but the int16 rounding);
+// their FFT runs in f64 all the same, so that it shares the forward's device
+// code and exact twiddles, and rounds each sample once, after the window.
+// Their plain versions sum in f32 (an f32 matmul); chip_smoke.py holds the
+// two within 1e-4 of each row's largest magnitude.
 //
 // The post-filter itself is postfilter_body.cuh, which frame.cu shares.
 
@@ -65,8 +67,10 @@ using namespace rnnt;
 constexpr int GF = 2;              // streams per block, forward
 constexpr int GI = 4;              // streams per block, inverse
 constexpr int FWD_THREADS = GF * FFT_LANES;   // 128: a butterfly of each stream
-constexpr int INV_THREADS = FS;    // one pair of outputs (n, n+480) each
-constexpr int POST_THREADS = FS;   // one stream per block, as the inverse
+constexpr int INV_THREADS = GI * FH / FFT_R2;  // 128: a butterfly of each stream
+constexpr int POST_THREADS = FS;   // one stream per block
+static_assert(GI * FH / FFT_R1 <= INV_THREADS && POST_THREADS >= 256,
+              "the inverse's stages need these threads (inv_spectra)");
 
 __global__ void __launch_bounds__(FWD_THREADS, 4)
 forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
@@ -98,34 +102,28 @@ forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
       });
 }
 
-__global__ void __launch_bounds__(INV_THREADS)
+__global__ void __launch_bounds__(INV_THREADS, 4)
 inverse_kernel(const float* __restrict__ Y, const float* __restrict__ window,
                const double2* __restrict__ tw, float* __restrict__ out, int S) {
-  __shared__ float2 s_tw[WS];
-  // per stream and bin pair m: {w*re[2m], w*im[2m], w*re[2m+1], w*im[2m+1]}
-  __shared__ float4 s_y[GI][MI];
-  const int tid = threadIdx.x, s0 = blockIdx.x * GI;
-  load_twiddles_f32(s_tw, tw);
-  for (int i = tid; i < GI * MI; i += blockDim.x) {
-    int g = i / MI, m = i - g * MI, s = s0 + g;
-    const float* y = Y + (size_t)s * 2 * NBIN;
-    s_y[g][m] = s < S ? inv_pair(y, y + NBIN, m)
-                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
+  __shared__ double2 s_z[GI * FH];                // 30 KB: one sequence a stream
+  // the twiddles the inverse reads: the base table's first 480, then the
+  // FFT table
+  __shared__ double2 s_tw[FH + FFT_TABLE];
+  const int s0 = blockIdx.x * GI, ns = min(GI, S - s0);
+  for (int i = threadIdx.x; i < FH + FFT_TABLE; i += blockDim.x)
+    s_tw[i] = i < FH ? tw[i] : tw[WS + i - FH];
   __syncthreads();
-
-  const int n = tid;
-  if (n >= FS) return;
-  float e[GI], o[GI];
-  inv_sums<GI>(s_y, s_tw, n, e, o);
-  const float w0 = window[n], w1 = window[n + FS];
-#pragma unroll
-  for (int g = 0; g < GI; ++g) {
-    int s = s0 + g;
-    if (s >= S) break;
-    out[(size_t)s * WS + n] = w0 * (e[g] + o[g]);
-    out[(size_t)s * WS + n + FS] = w1 * (e[g] - o[g]);
-  }
+  inv_spectra<false>(
+      ns, s_z, s_tw, s_tw + FH, window,
+      [&](int g, int k) {
+        const float* y = Y + (size_t)(s0 + g) * 2 * NBIN;
+        return make_float2(y[k], y[NBIN + k]);
+      },
+      [&](int g, int n, float2 lo, float2 hi) {
+        float* o = out + (size_t)(s0 + g) * WS + n;
+        *reinterpret_cast<float2*>(o) = lo;
+        *reinterpret_cast<float2*>(o + FS) = hi;
+      });
 }
 
 __global__ void __launch_bounds__(POST_THREADS)
@@ -169,7 +167,8 @@ int rnnt_forward_spectral(const float* mem, const float* x,
   return (int)cudaGetLastError();
 }
 
-// Y [S, 962] re|im; window [960]; twiddles [960] f64; out [S, 960].
+// Y [S, 962] re|im; window [960]; twiddles [960 + 509] f64 pairs, as for
+// rnnt_forward_spectral; out [S, 960].
 int rnnt_inverse_spectral(const float* Y, const float* window,
                           const double* twiddles, float* out, int S,
                           void* stream) {
@@ -182,7 +181,7 @@ int rnnt_inverse_spectral(const float* Y, const float* window,
 // dX, dP [S, 962] re|im (the delayed frame); dEx, dEp, dExp, g, lastg, Ex
 // [S, 32]; silence [S] bytes (0 or 1); synthesis_mem [S, 480]; band [481, 32]
 // (bin energies -> bands); interp [32, 481] (band values -> bins); window
-// [960]; twiddles [960] f64.  Writes out [S, 480],
+// [960]; twiddles [960 + 509] f64 pairs, as for rnnt_forward_spectral.  Writes out [S, 480],
 // synthesis_mem_out [S, 480], lastg_out [S, 32].
 int rnnt_postfilter_synthesis(const float* dX, const float* dP, const float* dEx,
                               const float* dEp, const float* dExp, const float* g,

@@ -12,10 +12,15 @@
 // the f64 DFT matmul of the plain versions does: an f64 FFT's error
 // (~1e-16 of the row) moves the f32 result by an ulp at most, and rarely.
 //
-// Inverse: outputs n and n+480 come from one pass over the bin pairs
-// (2m, 2m+1) as E+O and E-O, in f32 with twiddles by f32 rotation, reloaded
-// from the table every RESEED pairs (so bin 480 gets the table's exact
-// sin 0).
+// Inverse: the unscaled inverse DFT x of a conjugate-symmetric spectrum X
+// (bins k <= 480) is taken as one complex 480-point sequence,
+// z[m] = x[2m] + i x[2m+1], the inverse FFT of
+// Z[k] = (X[k] + conj X[480-k]) + i w960^k (X[k] - conj X[480-k]), k < 480
+// (bins 0 and 480 taken real).  A first pass forms conj Z, the mirror of
+// the forward's last pass, and runs the radix-2 stage on it; the forward's
+// own radix-16 and radix-15 stages and table then give FFT(conj Z) =
+// conj z, and a last pass applies the synthesis window and rounds each
+// sample once to f32 (see inv_spectra below).
 
 #pragma once
 
@@ -29,9 +34,6 @@ constexpr int WS = 960;            // window / DFT length
 constexpr int NBIN = 481;          // bins kept
 constexpr int PBUF = 1728;         // pitch buffer
 constexpr int MAX_START = PBUF - WS;   // largest pitch-window start
-constexpr int MI = 241;            // inverse: bin pairs (2m, 2m+1), m < 241
-constexpr int RESEED = 16;         // inverse: table reload period, in pairs
-static_assert(240 % RESEED == 0, "bin 480 must take its twiddle from the table");
 
 // The forward FFT (dsp/fft_plan.py holds the same plan).  Each real input
 // v of 960 samples is transformed as one complex sequence of FH = 480
@@ -385,60 +387,62 @@ __device__ __forceinline__ void fwd_spectra(int nstr, double2* buf,
   }
 }
 
-// The twiddle table (cos, sin)(2 pi m / 960) rounded to f32, into shared
-// memory, by all threads of the block.
-__device__ __forceinline__ void load_twiddles_f32(float2* s_tw,
-                                                  const double2* __restrict__ tw) {
-  for (int i = threadIdx.x; i < WS; i += blockDim.x)
-    s_tw[i] = make_float2((float)tw[i].x, (float)tw[i].y);
-}
-
-// Bin pair m of a conjugate-symmetric spectrum (re[k], im[k], k < 481) with
-// the inverse's bin weights (1 at k = 0 and 480, 2 elsewhere):
-// {w re[2m], w im[2m], w re[2m+1], w im[2m+1]}.
-__device__ __forceinline__ float4 inv_pair(const float* re, const float* im, int m) {
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  const int ke = 2 * m, ko = 2 * m + 1;
-  const float we = (ke == 0 || ke == NBIN - 1) ? 1.0f : 2.0f;
-  v.x = we * re[ke];
-  v.y = we * im[ke];
-  if (ko < NBIN - 1) {                       // odd bins stop at 479
-    v.z = 2.0f * re[ko];
-    v.w = 2.0f * im[ko];
+// The inverse spectra of nstr streams by all threads of the block
+// (nstr * FH / FFT_R2 <= blockDim.x, or nstr * 256 with SPLIT): for each
+// stream g, x[n] = sum_k c_k (re_k cos(2 pi k n / 960) - im_k sin(2 pi k n /
+// 960)), c_k = 1 at k = 0 and 480 and 2 elsewhere, times the window, each
+// sample rounded once to f32.  load(g, k) gives bin k <= 480 of stream g as
+// (re, im) (the imaginary parts of bins 0 and 480 are not read); the
+// 480-point FFT runs in buf [nstr][480] (swizzled, swz); store(g, n, lo, hi)
+// takes samples n, n + 1 (lo) and n + 480, n + 481 (hi) for even n < 480, so
+// one call may read what it then overwrites.  tw holds the base twiddles
+// (cos, sin)(2 pi m / 960) for m < 480, ft the FFT table (either in device or
+// shared memory).  Starts after the caller's last barrier on buf and on
+// what load reads; has none after the stores.
+template <bool SPLIT, class Load, class Store>
+__device__ __forceinline__ void inv_spectra(int nstr, double2* buf,
+                                            const double2* __restrict__ tw,
+                                            const double2* __restrict__ ft,
+                                            const float* __restrict__ window,
+                                            Load load, Store store) {
+  constexpr int M0 = FH / FFT_R0;
+  // conj Z[k] = (conj A + B) - i w960^-k (conj A - B) for A = X[k] and
+  // B = X[480 - k], in f64 (the sums of two floats, then the twiddle)
+  const auto conj_z = [&](int g, int k) {
+    float2 a = load(g, k), b = load(g, FH - k);
+    if (k == 0) a.y = b.y = 0.0f;                  // bins 0 and 480 are real
+    const double2 s = make_double2((double)a.x + b.x, (double)b.y - a.y);
+    const double2 d = make_double2((double)a.x - b.x, -((double)a.y + b.y));
+    const double2 t = tw[k];
+    return cadd(s, cmul(make_double2(d.y, -d.x), make_double2(t.x, -t.y)));
+  };
+  // the radix-2 stage on conj Z: butterfly j of stream g reads points j and
+  // j + 240
+  for (int i = threadIdx.x; i < nstr * M0; i += blockDim.x) {
+    const int g = i / M0, j = i - g * M0;
+    const double2 a = conj_z(g, j), b = conj_z(g, j + M0);
+    double2* z = buf + g * FH;
+    z[swz(2 * j)] = cadd(a, b);
+    z[swz(2 * j + 1)] = csub(a, b);
   }
-  return v;
-}
-
-// Even- and odd-bin sums of output n < 480 for G spectra held as bin pairs
-// in s_y[g][m]: output n is E + O, output n + 480 is E - O.
-template <int G>
-__device__ __forceinline__ void inv_sums(const float4 (*s_y)[MI], const float2* s_tw,
-                                         int n, float (&e)[G], float (&o)[G]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g) { e[g] = 0.0f; o[g] = 0.0f; }
-  // twiddles (cos, sin)(2 pi k n / 960) of bins k = 2m (ce) and 2m+1 (co):
-  // ce steps by rotation with the twiddle of bin 2, co = ce times that of
-  // bin 1
-  const int step = (2 * n) % WS;
-  const float2 t1 = s_tw[n], t2 = s_tw[step];
-  int idx = 0;                                   // (2m * n) mod 960
-  float2 ce = make_float2(1.0f, 0.0f);
-  for (int m = 0; m < MI; ++m) {
-    if (m % RESEED == 0) ce = s_tw[idx];
-    const float2 co = make_float2(fmaf(ce.x, t1.x, -ce.y * t1.y),
-                                  fmaf(ce.x, t1.y, ce.y * t1.x));
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float4 v = s_y[g][m];
-      e[g] = fmaf(v.x, ce.x, e[g]);
-      e[g] = fmaf(-v.y, ce.y, e[g]);
-      o[g] = fmaf(v.z, co.x, o[g]);
-      o[g] = fmaf(-v.w, co.y, o[g]);
-    }
-    ce = make_float2(fmaf(ce.x, t2.x, -ce.y * t2.y),
-                     fmaf(ce.x, t2.y, ce.y * t2.x));
-    idx += step;
-    if (idx >= WS) idx -= WS;
+  __syncthreads();
+  if constexpr (SPLIT) {
+    fft_stage16_split<FFT_NS1, FFT_OFF1>(nstr, buf, ft);
+    fft_stage15_split<FFT_NS2, FFT_OFF2>(nstr, buf, ft);
+  } else {
+    fft_stage<FFT_R1, FFT_NS1, FFT_OFF1>(nstr, buf, ft);
+    fft_stage<FFT_R2, FFT_NS2, FFT_OFF2>(nstr, buf, ft);
+  }
+  // x[2m] = Re F[m], x[2m+1] = -Im F[m] for F = FFT(conj Z); a thread
+  // makes samples 2m, 2m + 1 and their partners 480 later
+  const float2* w2 = reinterpret_cast<const float2*>(window);
+  const auto pair = [&](double2 f, float2 w) {
+    return make_float2((float)((double)w.x * f.x), (float)((double)w.y * -f.y));
+  };
+  for (int i = threadIdx.x; i < nstr * M0; i += blockDim.x) {
+    const int g = i / M0, m = i - g * M0;
+    const double2* z = buf + g * FH;
+    store(g, 2 * m, pair(z[swz(m)], w2[m]), pair(z[swz(m + M0)], w2[m + M0]));
   }
 }
 

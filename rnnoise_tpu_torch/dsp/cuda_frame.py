@@ -134,15 +134,15 @@ def process_chunk_monokernel(params, state, pcm: torch.Tensor,
     pk = cuda_rnn.packed_params(params)
     C, N = pk.conv1_b.shape[0], pk.conv2_b.shape[0]
     F, NB = pk.conv1_w.shape[0] // 3, pk.heads_b.shape[0] - 1
-    if F != 2 * NB + 1 or NB != NB_BANDS or (3 * C) % 4 or N % 4:
+    if F != 2 * NB + 1 or NB != NB_BANDS or (3 * C) % 4 or N % cuda_rnn.BLOCK_OUT:
         raise ValueError(f"the monokernel needs {NB_BANDS} bands, 2 * bands "
-                         "+ 1 features and 3 * cond and gru widths that are "
-                         f"multiples of 4, not NB={NB}, F={F}, C={C}, N={N}")
+                         "+ 1 features, 3 * cond a multiple of 4 and gru a "
+                         f"multiple of {cuda_rnn.BLOCK_OUT}, not NB={NB}, "
+                         f"F={F}, C={C}, N={N}")
     f32 = torch.float32
     pcm = pcm.contiguous()
     kernels.require(pcm, "pcm", (T, S, FRAME_SIZE), torch.int16, dev)
-    for name, t in zip(cuda_rnn.PackedRNN._fields, pk):
-        kernels.require(t, name, tuple(t.shape), t.dtype, dev)
+    cuda_rnn.require_packed(pk, F, C, N, NB, dev)
     src = [t.contiguous() for t in _leaves(state)]
     widths = (FRAME_SIZE, FRAME_SIZE, PITCH_BUF_SIZE, None, None, 2, NB,
               2 * F, 2 * C, N, N, N, 2 * FREQ_SIZE, 2 * FREQ_SIZE, NB, NB, NB)

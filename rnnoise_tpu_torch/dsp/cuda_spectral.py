@@ -5,11 +5,13 @@ CUDA kernels (``csrc/spectral.cu``) — the port of
 
 Unlike the TPU kernels, which keep a permuted 488-wide bin order, these
 work in natural order: spectra are ``[S, 962]`` re|im.  The forward
-spectra are two 480-point f64 FFTs per stream, one per input, planned in
-``fft_plan.py``; the wrapper hands the kernel their twiddle table.  Each
-wrapper launches its kernel for CUDA tensors and uses its plain version (dense DFT
-matmuls from ``transform.py``, in f64 for the forward spectra; the
-post-filter's band arithmetic as ``denoise.py`` ran it) for CPU tensors.
+spectra are two 480-point f64 FFTs per stream, one per input, and the
+inverse spectrum (alone and inside the post-filter) one 480-point f64 FFT of
+the same stages, all planned in ``fft_plan.py``; the wrappers hand each
+kernel their twiddle table.  Each wrapper launches its kernel for CUDA
+tensors and uses its plain version (dense DFT matmuls from
+``transform.py``, in f64 for the forward spectra; the post-filter's band
+arithmetic as ``denoise.py`` ran it) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -82,8 +84,7 @@ def postfilter_synthesis_plain(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
 
 @functools.lru_cache(maxsize=None)
 def kernel_tables(device: str):
-    """(window [960] f32, twiddles [960, 2] f64 = cos, sin of 2 pi m / 960;
-    the inverse kernel rounds them to f32)."""
+    """(window [960] f32, twiddles [960, 2] f64 = cos, sin of 2 pi m / 960)."""
     m = np.arange(WINDOW_SIZE)
     tw = np.stack([np.cos(2 * np.pi * m / WINDOW_SIZE),
                    np.sin(2 * np.pi * m / WINDOW_SIZE)], axis=1)
@@ -95,10 +96,10 @@ def kernel_tables(device: str):
 
 @functools.lru_cache(maxsize=None)
 def fft_tables(device: str) -> torch.Tensor:
-    """The forward kernels' twiddles [960 + 509, 2] f64: kernel_tables'
+    """The spectral kernels' twiddles [960 + 509, 2] f64: kernel_tables'
     base table, then the FFT's stage twiddles and roots
-    (fft_plan.fft_table).  The inverse and the post-filter read the first
-    960 rows only."""
+    (fft_plan.fft_table).  Every kernel of spectral.cu, analysis.cu and
+    frame.cu takes it."""
     tw = kernel_tables("cpu")[1]
     plan = torch.from_numpy(fft_plan.fft_table(tw.numpy()))
     return torch.cat([tw, plan]).to(device)
@@ -154,7 +155,7 @@ def inverse_spectral(Y):
     S, dev = Y.shape[0], Y.device
     Y = Y.contiguous()
     kernels.require(Y, "Y", (S, 2 * FREQ_SIZE), torch.float32, dev)
-    window, tw = kernel_tables(str(dev))
+    window, tw = kernel_tables(str(dev))[0], fft_tables(str(dev))
     out = torch.empty((S, WINDOW_SIZE), dtype=torch.float32, device=dev)
     p = kernels.ptr
     kernels.launch(_lib().rnnt_inverse_spectral, "inverse_spectral", dev,
@@ -183,7 +184,7 @@ def postfilter_synthesis(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
         kernels.require(t, name, (S, NB_BANDS), f32, dev)
     kernels.require(silence, "silence", (S,), torch.bool, dev)
     kernels.require(synthesis_mem, "synthesis_mem", (S, FRAME_SIZE), f32, dev)
-    window, tw = kernel_tables(str(dev))
+    window, tw = kernel_tables(str(dev))[0], fft_tables(str(dev))
     band, interp = device_table("band", str(dev)), device_table("interp", str(dev))
     out = torch.empty((S, FRAME_SIZE), dtype=f32, device=dev)
     smem_out = torch.empty_like(out)

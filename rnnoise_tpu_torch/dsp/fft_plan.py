@@ -29,6 +29,18 @@ radix-2 butterfly without twiddles; the radix-16 butterfly runs as 4 x 4
 with the roots of 16 as its inner twiddles, the radix-15 one by the
 prime-factor map 3 x 5, both from a table of their R roots.
 
+The inverse spectrum (``inv_spectra``) runs the same stages on one
+sequence per spectrum.  The unscaled inverse x of a conjugate-symmetric
+spectrum X (bins k <= 480, bins 0 and 480 taken real) is, as the complex
+sequence z[m] = x[2m] + i x[2m+1], the unscaled inverse FFT of
+
+    Z[k] = (X[k] + conj X[480-k]) + i conj(tw(k)) (X[k] - conj X[480-k]),
+
+k < 480, the mirror of the forward's last pass.  A first pass forms conj Z
+and the forward FFT of it is conj z, so x[2m] = Re FFT(conj Z)[m] and
+x[2m+1] = -Im FFT(conj Z)[m]; each sample is windowed in f64 and rounded
+once to f32.
+
 The kernel reads the twiddles from the table this module builds
 (:func:`fft_table`), which the wrappers append to the 960 base twiddles:
 for each stage s >= 1, its (R - 1) x Ns twiddles (row r - 1, column jm),
@@ -100,13 +112,24 @@ def fft_table(base_tw: np.ndarray) -> np.ndarray:
     return np.concatenate(parts, axis=0)
 
 
+def _sequence_ops() -> int:
+    """f64 operations of the stages on one sequence: the butterflies
+    (BUTTERFLY_OPS) with 4 per complex twiddle."""
+    return sum((H // R) * (BUTTERFLY_OPS[R] + (4 * (R - 1) if ns > 1 else 0))
+               for R, ns, _ in stages())
+
+
 def f64_ops_per_stream() -> int:
     """f64 operations (add, multiply or fused multiply-add, one each) of the
-    kernel's two spectra of one stream: the windowing products, for each of
-    the two sequences the butterflies (BUTTERFLY_OPS) with 4 per complex
-    twiddle, and the last pass over its 481 bins (6 adds, a complex
-    multiply of 4 and 2 scalings)."""
-    per_seq = 0
-    for R, ns, _ in stages():
-        per_seq += (H // R) * (BUTTERFLY_OPS[R] + (4 * (R - 1) if ns > 1 else 0))
-    return 2 * N + 2 * (per_seq + 12 * (H + 1))
+    kernel's two forward spectra of one stream: the windowing products, for
+    each of the two sequences the stages (_sequence_ops) and the last pass
+    over its 481 bins (6 adds, a complex multiply of 4 and 2 scalings)."""
+    return 2 * N + 2 * (_sequence_ops() + 12 * (H + 1))
+
+
+def inverse_f64_ops_per_stream() -> int:
+    """f64 operations of the inverse of one spectrum as the kernel computes
+    it: the first pass over the 480 points of conj Z (4 adds, a complex
+    multiply of 4 and a complex add of 2), the stages on one sequence
+    (_sequence_ops) and the window's 960 products."""
+    return 10 * H + _sequence_ops() + N

@@ -1,28 +1,32 @@
 #!/usr/bin/env python3
 """The standalone kernels built from this checkout against those built from
-another checkout's sources, on the same inputs: how far their outputs are
-apart, and how long each build takes.
+another checkout, on the same inputs: how far their outputs are apart, and
+how long each build takes.
 
     python3 scripts/torch_kernel_bitwise.py --against OTHER/rnnoise_tpu_torch/csrc
 
-Run from the repo root on a CUDA machine.  Builds rnn_step.cu, spectral.cu,
-analysis.cu and frame.cu from both source directories in one nvcc round,
-then calls each kernel (RNN step, forward and inverse spectra, post-filter,
-lag table, analysis, and the whole-chunk kernel over T=20 frames) through
-this checkout's wrappers with each build on the same random inputs, at
-S=1024 and at S=37 (a ragged last block).  For each it prints the elements
-that differ, the largest difference in f32 ulps (over all elements, and
-over those above 1e-6 of their row's maximum, where an ulp is not noise
-below the row's rounding) and the largest difference relative to the row's
-maximum (the analysis: the streams whose period differs, and the spectra of
-the others; the whole-chunk kernel: PCM in LSB, VAD and the final periods),
-and at S=1024 each build's time per call (chip_smoke.gpu_time: CUDA
-events, the calls back to back on the card), taken in turns (other, this,
-this, other).  Exits 1 if the RNN step, the inverse spectrum or the
-post-filter differ at all: their device code must not change.
+Run from the repo root on a CUDA machine.  Imports the other checkout's
+package (the directory above its csrc/) under another name, builds both
+checkouts' rnn_step.cu, spectral.cu, analysis.cu and frame.cu, and
+calls each kernel (RNN step, forward and inverse spectra, post-filter, lag
+table, analysis, and the whole-chunk kernel over T=20 frames) through each
+checkout's own wrappers on the same random inputs, at S=1024 and at S=37 (a
+ragged last block), so the two may differ in their kernels' arguments and
+weight layouts.  For each it prints the elements that differ, the largest
+difference in f32 ulps (over all elements, and over those above 1e-6 of
+their row's maximum, where an ulp is not noise below the row's rounding)
+and the largest difference relative to the row's maximum (the analysis: the
+streams whose period differs, and the spectra of the others; the
+whole-chunk kernel: PCM in LSB, VAD and the final periods), and at S=1024
+each build's time per call (chip_smoke.gpu_time: CUDA events, the calls
+back to back on the card), taken in turns (other, this, this, other).
+Exits 1 if the RNN step differs at all: its arithmetic is exact (int8 dots
+in s32), so no redesign may change a bit of it.
 """
 
 import argparse
+import importlib
+import importlib.util
 import os
 import sys
 
@@ -32,41 +36,38 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from chip_smoke import SEED, gpu_time, signals  # noqa: E402
-from rnnoise_tpu_torch import kernels  # noqa: E402
+import rnnoise_tpu_torch  # noqa: E402
 from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device  # noqa: E402
 from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16  # noqa: E402
-from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr, pitch  # noqa: E402
-from rnnoise_tpu_torch.dsp import cuda_spectral as spec  # noqa: E402
+from rnnoise_tpu_torch.dsp import pitch  # noqa: E402
 from rnnoise_tpu_torch.models.rnn import RNNState  # noqa: E402
-from rnnoise_tpu_torch.nn import cuda_rnn  # noqa: E402
 from rnnoise_tpu_torch.weights.loader import load_model_file  # noqa: E402
 
-SOURCES = {"rnn_step": (cuda_rnn,), "spectral": (spec,),
-           "analysis": (cuda_xcorr, cuda_analysis), "frame": (cuda_frame,)}
-STRICT = ("rnn_step", "inverse_spectral", "postfilter_synthesis")
+MODULES = ("kernels", "nn.cuda_rnn", "dsp.cuda_spectral", "dsp.cuda_xcorr",
+           "dsp.cuda_analysis", "dsp.cuda_frame")
+STRICT = ("rnn_step",)
+
+
+def package_modules(name):
+    """{module: the module} of an imported copy of the port."""
+    return {m.rsplit(".", 1)[-1]: importlib.import_module(f"{name}.{m}") for m in MODULES}
+
+
+def import_other(csrc):
+    """The other checkout's package, imported as other_rnnoise_tpu_torch."""
+    pkg = os.path.dirname(os.path.abspath(csrc))
+    name = "other_rnnoise_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return package_modules(name)
 
 
 def flat(out):
     out = out if isinstance(out, tuple) else (out,)
     return [u for t in out for u in (t if isinstance(t, tuple) else (t,))]
-
-
-def swap(source):
-    libs = kernels._LIBS
-    libs[source], libs["other_" + source] = libs["other_" + source], libs[source]
-    for mod in SOURCES[source]:
-        mod._LIB = None
-
-
-def with_other(source, fn):
-    """fn() with the other checkout's library of ``source``."""
-    swap(source)
-    try:
-        out = fn()
-        torch.cuda.synchronize()
-        return out
-    finally:
-        swap(source)
 
 
 def ulps(a, b):
@@ -129,12 +130,10 @@ def main():
         print("torch_kernel_bitwise: no CUDA device", file=sys.stderr)
         return 1
     dev = resolve_device("cuda")
-    exe = kernels.nvcc()
-    kernels.compile_libraries({
-        **{n: [exe, *kernels.NVCC_FLAGS, os.path.join(kernels.CSRC_DIR, n + ".cu")]
-           for n in SOURCES},
-        **{"other_" + n: [exe, *kernels.NVCC_FLAGS, os.path.join(a.against, n + ".cu")]
-           for n in SOURCES}})
+    mine = package_modules(rnnoise_tpu_torch.__name__)
+    other = import_other(a.against)
+    for mods in (mine, other):
+        mods["kernels"].build_kernels()
     params = load_model_file(os.path.join(REPO, "models", "rnnoise_synth_v1.blob"),
                              device=dev)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -149,7 +148,7 @@ def main():
         mem, x, pbuf = rnd(S, 480, scale=3e3), rnd(S, 480, scale=3e3), rnd(S, 1728, scale=3e3)
         mem[0], x[0], pbuf[0] = 1e-4 * mem[0], 1e-4 * x[0], 1e-4 * pbuf[0]
         start = torch.randint(0, 709, (S,), generator=g, device=dev, dtype=torch.int32)
-        X, P = spec.forward_spectral(mem, x, pbuf, start)
+        X, P = mine["cuda_spectral"].forward_spectral(mem, x, pbuf, start)
         Ex = torch.rand(S, 32, generator=g, device=dev)
         post = (X, P, Ex, *(torch.rand(S, 32, generator=g, device=dev) for _ in range(4)),
                 1.3 * Ex, torch.arange(S, device=dev) % 5 == 0, rnd(S, 480))
@@ -166,32 +165,32 @@ def main():
         warm, _, _ = process_frames_tm_i16(params, init_state(S, device=dev), pcm[:10],
                                            CONFIGURATIONS["fused"])
         chunk = pcm[10:].contiguous()
-        for name, source, fn in (
-                ("rnn_step", "rnn_step",
-                 lambda: cuda_rnn.compute_rnn_step(params, st, feats, sil)),
-                ("forward_spectral", "spectral",
-                 lambda: spec.forward_spectral(mem, x, pbuf, start)),
-                ("inverse_spectral", "spectral", lambda: spec.inverse_spectral(X)),
-                ("postfilter_synthesis", "spectral",
-                 lambda: spec.postfilter_synthesis(*post)),
-                ("lag_corr_table", "analysis",
-                 lambda: cuda_xcorr.lag_corr_table_kernel(ds)),
-                ("analysis_spectral", "analysis",
-                 lambda: cuda_analysis.analysis_spectral(*an)),
-                ("process_chunk_monokernel", "frame",
-                 lambda: cuda_frame.process_chunk_monokernel(params, warm, chunk))):
-            mine = fn()
+        for name, fn in (
+                ("rnn_step",
+                 lambda m: m["cuda_rnn"].compute_rnn_step(params, st, feats, sil)),
+                ("forward_spectral",
+                 lambda m: m["cuda_spectral"].forward_spectral(mem, x, pbuf, start)),
+                ("inverse_spectral", lambda m: m["cuda_spectral"].inverse_spectral(X)),
+                ("postfilter_synthesis",
+                 lambda m: m["cuda_spectral"].postfilter_synthesis(*post)),
+                ("lag_corr_table",
+                 lambda m: m["cuda_xcorr"].lag_corr_table_kernel(ds)),
+                ("analysis_spectral",
+                 lambda m: m["cuda_analysis"].analysis_spectral(*an)),
+                ("process_chunk_monokernel",
+                 lambda m: m["cuda_frame"].process_chunk_monokernel(params, warm, chunk))):
+            ours, theirs = fn(mine), fn(other)
             torch.cuda.synchronize()
-            text, equal = compare(name, mine, with_other(source, fn))
+            text, equal = compare(name, ours, theirs)
             if name in STRICT:
                 strict_ok = strict_ok and equal
                 text += " (must be bitwise equal)"
             print(f"S={S} {name}: {text}", flush=True)
             if S == 1024:
                 reps = 5 if name == "process_chunk_monokernel" else 20
-                t_o = [with_other(source, lambda: gpu_time(fn, reps))]
-                t_m = [gpu_time(fn, reps), gpu_time(fn, reps)]
-                t_o.append(with_other(source, lambda: gpu_time(fn, reps)))
+                t_o = [gpu_time(lambda: fn(other), reps)]
+                t_m = [gpu_time(lambda: fn(mine), reps), gpu_time(lambda: fn(mine), reps)]
+                t_o.append(gpu_time(lambda: fn(other), reps))
                 print(f"S={S} {name}: other build {sum(t_o) / 2:.4f} ms ({t_o[0]:.4f}, "
                       f"{t_o[1]:.4f}), this build {sum(t_m) / 2:.4f} ms ({t_m[0]:.4f}, "
                       f"{t_m[1]:.4f})", flush=True)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Check chip_smoke.py's timing against the profiler's kernel time, for the
-forward spectra and the lag table and the PyTorch calls they are held
-against (``torch.fft.rfft``, the grouped ``conv1d`` of pitch.batched_xcorr),
-at S=1024 on one GPU.
+forward and inverse spectra, the lag table and the RNN step, and the
+PyTorch calls they are held against (``torch.fft.rfft``,
+``torch.fft.irfft``, the grouped ``conv1d`` of pitch.batched_xcorr), at
+S=1024 on one GPU.
 
     python3 scripts/torch_timing_check.py [--streams 1024]
 
@@ -39,8 +40,12 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from chip_smoke import MODEL
     from rnnoise_tpu_torch.dsp import cuda_spectral as spec
     from rnnoise_tpu_torch.dsp import cuda_xcorr, pitch
+    from rnnoise_tpu_torch.models.rnn import RNNState
+    from rnnoise_tpu_torch.nn import cuda_rnn
+    from rnnoise_tpu_torch.weights.loader import load_model_file
     if not torch.cuda.is_available():
         print("torch_timing_check: no CUDA device", file=sys.stderr)
         return 1
@@ -56,8 +61,18 @@ def main():
     win = spec.kernel_tables(str(dev))[0]
     both = torch.cat([torch.cat([mem, x], 1), spec.take_window(pbuf, start)]) * win
     x_win = ds[:, 384:].contiguous()
+    Y = spec.forward_spectral(mem, x, pbuf, start)[0]
+    Yc = torch.complex(Y[:, :481], Y[:, 481:])
+    params = load_model_file(MODEL, device=dev)
+    feats = torch.randn(S, 65, generator=g, device=dev)
+    st = RNNState(*(torch.tanh(torch.randn(S, w, generator=g, device=dev))
+                    for w in (130, 256, 384, 384, 384)))
+    sil = torch.rand(S, generator=g, device=dev) < 0.125
     cases = {"forward_spectral": lambda: spec.forward_spectral(mem, x, pbuf, start),
              "rfft": lambda: torch.fft.rfft(both, dim=-1),
+             "inverse_spectral": lambda: spec.inverse_spectral(Y),
+             "irfft": lambda: torch.fft.irfft(Yc, n=960, dim=-1),
+             "rnn_step": lambda: cuda_rnn.compute_rnn_step(params, st, feats, sil),
              "lag_corr_table": lambda: cuda_xcorr.lag_corr_table_kernel(ds),
              "grouped conv1d": lambda: pitch.batched_xcorr(x_win, ds, 385)}
     for name, fn in cases.items():

@@ -232,6 +232,71 @@ def test_main_path_kernels_vs_plain(dev, config):
     assert float((vk - vp).abs().max()) <= 2e-3
 
 
+RAGGED = [1, 7, 9, 1023]
+
+
+@pytest.mark.parametrize("S", RAGGED)
+def test_inverse_spectral_kernel_ragged(dev, S):
+    """The inverse FFT at ragged S (blocks of 4 streams, the tail masked)
+    against its plain version within 1e-4 of each row's maximum; a silent
+    spectrum gives exact zeros, and the imaginary parts of bins 0 and 480
+    are not read."""
+    g = torch.Generator(device=dev).manual_seed(50 + S)
+    x = 3000 * torch.randn(S, 960, generator=g, device=dev)
+    Y, _ = spec.forward_spectral(x[:, :480], x[:, 480:], torch.cat(
+        [x, x[:, :768]], 1), torch.zeros(S, dtype=torch.int32, device=dev))
+    Y[0] = 0.0
+    before = spec.inverse_spectral.launches
+    out = spec.inverse_spectral(Y)
+    assert spec.inverse_spectral.launches == before + 1
+    assert not out[0].any()
+    if S > 1:
+        assert _rel(out[1:], spec.inverse_spectral_plain(Y)[1:]) <= 1e-4
+        Y2 = Y.clone()
+        Y2[:, 481], Y2[:, -1] = 5.0, -7.0
+        assert torch.equal(spec.inverse_spectral(Y2)[1:], out[1:])
+
+
+@pytest.mark.parametrize("S", RAGGED)
+def test_postfilter_kernel_ragged(dev, S):
+    """The post-filter with its lane-split inverse FFT at ragged S, every
+    3rd stream silent, against its plain version (the tolerances of
+    chip_smoke.py phase 2)."""
+    g = torch.Generator(device=dev).manual_seed(60 + S)
+    x = 3000 * torch.randn(S, 960, generator=g, device=dev)
+    p = 0.7 * x + 500 * torch.randn(S, 960, generator=g, device=dev)
+    X, P = spec.forward_spectral(x[:, :480], x[:, 480:], torch.cat(
+        [p, p[:, :768]], 1), torch.zeros(S, dtype=torch.int32, device=dev))
+    Ex, Ep = compute_band_energy(X), compute_band_energy(P)
+    Exp = compute_band_corr(X, P) / torch.sqrt(0.001 + Ex * Ep)
+    args = (X, P, Ex, Ep, Exp,
+            0.05 + 0.95 * torch.rand(S, 32, generator=g, device=dev),
+            torch.rand(S, 32, generator=g, device=dev),
+            Ex * (0.5 + 1.5 * torch.rand(S, 1, generator=g, device=dev)),
+            torch.arange(S, device=dev) % 3 == 0,
+            torch.randn(S, 480, generator=g, device=dev))
+    k = spec.postfilter_synthesis(*args)
+    pl = spec.postfilter_synthesis_plain(*args)
+    assert _rel(k[0], pl[0]) <= 1e-4 and _rel(k[1], pl[1]) <= 1e-4
+    assert float((k[2] - pl[2]).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("S", RAGGED)
+def test_rnn_step_kernel_bitwise_ragged(dev, S):
+    """The block-sparse RNN step at ragged S (blocks of 8 streams), every
+    5th stream silent: bit for bit its plain version."""
+    params = load_model_file(MODEL_BLOB, device=dev)
+    g = torch.Generator(device=dev).manual_seed(70 + S)
+    feats = torch.randn(S, 65, generator=g, device=dev)
+    st = RNNState(*(torch.tanh(torch.randn(S, w, generator=g, device=dev))
+                    for w in (130, 256, 384, 384, 384)))
+    sil = torch.arange(S, device=dev) % 5 == 0
+    a = cuda_rnn.compute_rnn_step(params, st, feats, sil)
+    b = cuda_rnn.compute_rnn_plain(params, st, feats, sil)
+    for x, y in zip((*a[0], a[1], a[2]), (*b[0], b[1], b[2])):
+        assert torch.equal(x, y)
+
+
 def test_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError):
         spec.inverse_spectral(torch.zeros(3, 900, device=dev))

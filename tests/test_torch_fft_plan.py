@@ -1,11 +1,11 @@
-"""The plans of the redesigned forward-spectrum and lag-table kernels, on CPU.
+"""The plans of the redesigned spectrum and lag-table kernels, on CPU.
 
-The forward spectra's FFT (``csrc/spectral_common.cuh``) and the lag table's
-tiles (``csrc/analysis_body.cuh``) run only on the card.  Their plans live in
-Python (``dsp/fft_plan.py``, ``dsp/cuda_xcorr.py``) and the wrappers hand the
-FFT's twiddle table to the kernel; here numpy emulates the kernels' stage
-sequence and tile sums with exactly those tables and that order, and holds
-them against the plain f64 versions and the JAX package.
+The forward and inverse spectra's FFT (``csrc/spectral_common.cuh``) and the
+lag table's tiles (``csrc/analysis_body.cuh``) run only on the card.  Their
+plans live in Python (``dsp/fft_plan.py``, ``dsp/cuda_xcorr.py``) and the
+wrappers hand the FFT's twiddle table to the kernels; here numpy emulates
+the kernels' stage sequence and tile sums with exactly those tables and that
+order, and holds them against the plain versions and the JAX package.
 """
 
 import os
@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from rnnoise_tpu.dsp import pallas_spectral as jps
 from rnnoise_tpu.dsp import transform as jtr
 from rnnoise_tpu.dsp.gather import take_window as jtake
 from rnnoise_tpu_torch import kernels
@@ -88,6 +89,24 @@ def emulate_forward_spectral(mem, x, pbuf, start):
     st = np.clip(start, 0, pbuf.shape[1] - N)
     p = np.stack([pbuf[s, st[s]:st[s] + N] for s in range(len(st))])
     return emulate_spectrum(np.concatenate([mem, x], 1)), emulate_spectrum(p)
+
+
+def emulate_inverse(Y):
+    """The inverse kernel's output [S, 960] f64 (not rounded) for spectra
+    Y [S, 962] re|im: the first pass forms conj Z from bins k and 480 - k
+    with the base twiddles, the stages (the radix-2 one included) transform
+    it with the FFT table, and the window scales x[2m] = Re F[m],
+    x[2m+1] = -Im F[m]."""
+    base = spec.kernel_tables("cpu")[1].numpy()
+    X = Y[:, :481].astype(np.float64) + 1j * Y[:, 481:].astype(np.float64)
+    X[:, [0, 480]] = X[:, [0, 480]].real                 # bins 0 and 480 real
+    k = np.arange(N // 2)
+    a, b = np.conj(X[:, k]), X[:, N // 2 - k]
+    t = base[k, 0] - 1j * base[k, 1]                     # exp(-2 pi i k / 960)
+    F = emulate_fft((a + b) + (-1j) * (a - b) * t, spec.fft_tables("cpu").numpy()[N:])
+    x = np.empty((Y.shape[0], N))
+    x[:, 0::2], x[:, 1::2] = F.real, -F.imag
+    return spec.kernel_tables("cpu")[0].numpy().astype(np.float64) * x
 
 
 def _table_rows(radices):
@@ -189,6 +208,71 @@ def test_fft_f64_op_count():
     ops = fft_plan.f64_ops_per_stream()
     assert 35_000 < ops < 50_000
     assert 2 * 481 * 960 / ops > 20
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-4], ids=["random", "near_silent"])
+def test_inverse_emulation_matches_plain_and_reference(scale):
+    """The inverse's plan (first pass, stages, window) reproduces the f64
+    windowed inverse DFT to 1e-12 of each row's maximum; rounded to f32 it
+    meets the plain version (an f32 matmul) within 1e-6 of each row's
+    maximum and the JAX package's inverse_spectral kernel (interpret mode)
+    within 1e-5, and it ignores the imaginary parts of bins 0 and 480."""
+    rng = np.random.default_rng(17)
+    S = 6
+    x = (3000 * scale * rng.standard_normal((S, N))).astype(np.float32)
+    Y = ttr.windowed_forward_transform(torch.from_numpy(x)).numpy()
+    Y[:, 240] *= 50.0                             # a loud bin beside the rest
+    e = emulate_inverse(Y)
+    inv64 = torch.from_numpy(Y).double() @ torch.from_numpy(
+        ttr._dft_matrices(True)[1])
+    assert _rel(e, inv64.numpy()) <= 1e-12
+    plain = spec.inverse_spectral_plain(torch.from_numpy(Y)).numpy()
+    assert _rel(e.astype(np.float32), plain) <= 1e-6
+    Xc = jnp.asarray(Y[:, :481] + 1j * Y[:, 481:])
+    ref = np.asarray(jps.inverse_spectral(jps.permute_spectrum(Xc), interpret=True))
+    assert _rel(e.astype(np.float32), ref) <= 1e-5
+    Y2 = Y.copy()
+    Y2[:, 481], Y2[:, -1] = 5.0, -7.0
+    assert np.array_equal(emulate_inverse(Y2), e)
+
+
+def test_silent_spectrum_gives_zero_output():
+    """A silent spectrum beside loud ones inverts to exact zeros."""
+    rng = np.random.default_rng(19)
+    Y = (rng.standard_normal((3, 962))).astype(np.float32)
+    Y[1] = 0.0
+    e = emulate_inverse(Y)
+    assert not e[1].any() and e[0].any() and e[2].any()
+
+
+def test_inverse_uses_the_forward_stages_and_table():
+    """The inverse runs the forward's stages with the same radices, stage
+    offsets and FFT table: inv_spectra calls the stage functions with the
+    template arguments fwd_spectra uses, in both shapes, and the standalone
+    inverse kernel stages the base twiddles it reads (k < 480) and the FFT
+    table, with a butterfly of each of its streams per thread."""
+    src = _source("spectral_common.cuh")
+    fwd = src[src.index("void fwd_spectra("):src.index("void inv_spectra(")]
+    inv = src[src.index("void inv_spectra("):]
+    calls = r"fft_stage\w*<[^>]+>\(n\w+, buf, ft\);"
+    assert re.findall(calls, fwd) and re.findall(calls, fwd) == \
+        [c.replace("nstr", "nseq") for c in re.findall(calls, inv)]
+    kern = _source("spectral.cu")
+    assert "__shared__ double2 s_tw[FH + FFT_TABLE];" in kern
+    assert "s_tw[i] = i < FH ? tw[i] : tw[WS + i - FH];" in kern
+    assert "constexpr int INV_THREADS = GI * FH / FFT_R2;" in kern
+    # the first pass reads base twiddles k < 480, the stages the table rows
+    assert _table_rows(fft_plan.FFT_RADICES) == fft_plan.fft_table(
+        spec.kernel_tables("cpu")[1].numpy()).shape[0]
+
+
+def test_inverse_f64_op_count():
+    """About 21 k f64 operations a spectrum, half the forward's two
+    sequences, and over 20x fewer than the direct DFT's 481 x 960."""
+    ops = fft_plan.inverse_f64_ops_per_stream()
+    assert 15_000 < ops < 25_000
+    assert 481 * 960 / ops > 20
+    assert ops < fft_plan.f64_ops_per_stream() / 2
 
 
 def test_lag_tile_shape_matches_kernel_source():

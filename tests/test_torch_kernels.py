@@ -10,6 +10,9 @@ another one than the tensors', so a wrapper that took the current stream
 instead of its tensors' would pass the wrong one."""
 
 import contextlib
+import glob
+import os
+import re
 
 import pytest
 import torch
@@ -35,12 +38,13 @@ class _Recorder:
     name, the device current when it was called and its stream argument."""
 
     def __init__(self, entered):
-        self.entered, self.calls = entered, []
+        self.entered, self.calls, self.n_args = entered, [], {}
 
     def __getattr__(self, name):
         def launch(*args):
             stream = args[-1].value if args[-1] is not None else None
             self.calls.append((name, list(self.entered), stream))
+            self.n_args[name] = len(args)
             return 0
         return launch
 
@@ -76,7 +80,9 @@ def _cuda(t):
     return t.as_subclass(OnCuda)
 
 
-def test_wrappers_launch_on_their_tensors_device(recorded):
+def _launch_all(recorded):
+    """Every wrapper's CUDA branch once, on CPU tensors; returns the launch
+    functions' names in call order."""
     params = load_model_file(MODEL_BLOB, device="cpu")
     g = torch.Generator().manual_seed(0)
     S = 3
@@ -103,14 +109,41 @@ def test_wrappers_launch_on_their_tensors_device(recorded):
         "rnnt_process_chunk": lambda: cuda_frame.process_chunk_monokernel(
             params, init_state(S, device="cpu"), _cuda(pcm)),
     }
-    cpu = torch.device("cpu")
-    for name, call in calls.items():
+    for call in calls.values():
         call()
-        got, entered, stream = recorded.calls[-1]
-        assert got == name
+    return list(calls)
+
+
+def test_wrappers_launch_on_their_tensors_device(recorded):
+    names = _launch_all(recorded)
+    cpu = torch.device("cpu")
+    assert [c[0] for c in recorded.calls] == names
+    for name, entered, stream in recorded.calls:
         assert entered == [cpu], f"{name} launched with {entered} current"
         assert stream == _stream_of(cpu) != CURRENT_STREAM, name
-    assert len(recorded.calls) == len(calls)
+
+
+def test_wrappers_pass_each_c_parameter(recorded, monkeypatch):
+    """Each wrapper passes as many arguments as its extern "C" launch
+    function in csrc/ declares, and its library's ctypes argtypes list as
+    many (ctypes would not notice a missing one)."""
+    names = _launch_all(recorded)
+
+    class Library:
+        def __getattr__(self, name):
+            fn = type(name, (), {})()
+            setattr(self, name, fn)
+            return fn
+    monkeypatch.setattr(kernels, "library", lambda name: Library())
+    argtypes = {}
+    for mod in (cuda_rnn, cuda_spectral, cuda_xcorr, cuda_analysis, cuda_frame):
+        monkeypatch.setattr(mod, "_LIB", None)
+        lib = mod._lib()
+        argtypes.update({n: len(f.argtypes) for n, f in vars(lib).items()})
+    src = "".join(open(f).read() for f in glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu")))
+    for name in names:
+        params = re.search(r"\bint " + name + r"\(([^)]*)\)", src).group(1)
+        assert recorded.n_args[name] == argtypes[name] == params.count(",") + 1, name
 
 
 def test_launch_makes_the_device_current(recorded):
