@@ -14,8 +14,9 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              PyTorch library call (gpu_time: the calls back to back on the
              card), and the kernel's wrapper again as the host issues it
              (``host_ms``, its time to enqueue included); the forward
-             and inverse spectra, the lag table and the analysis also log
-             the f64 floor of their own design's arithmetic.
+             and inverse spectra, the lag table, the analysis, the
+             post-filter and the whole-chunk kernel also log the f64 floor
+             of their own design's arithmetic.
 3. main    — for each kernel configuration of process_frames_tm_i16
              (config.CONFIGURATIONS: scan, xcorr, fused, mono): S=1024, two
              chained calls of T=100 frames (T=50 for scan and xcorr, the slow
@@ -53,6 +54,21 @@ F64_RATE = 64 * 132 * 1.98e9
 # the lag table's f64 multiply-adds per stream (385 x 480) and the fixed-order
 # sums of its 4 tap slices
 LAG_F64_OPS = 385 * 480 + 385 * 3
+# the compact band tables' nonzeros: a band sum's f64 multiply-adds per stream
+BAND_NNZ = 723
+
+
+def mono_f64_ops():
+    """f64 operations of the whole-chunk kernel's design per stream and
+    frame: the biquad's Toeplitz term and state sums, the 5
+    autocorrelations, the coarse search's 147 lags and energies over 240
+    taps, the lag table's 385 lags and energies over 480 taps, both
+    forward FFTs, the 3 band sums and 2 DCTs, and the post-filter (its band
+    energies and inverse FFT)."""
+    from rnnoise_tpu_torch.dsp import fft_plan
+    return (480 * 479 // 2 + 2 * 480 + 5 * 864 + 2 * 147 * 240 + 2 * 385 * 480
+            + fft_plan.f64_ops_per_stream() + 3 * BAND_NNZ + 2 * 32 * 32
+            + BAND_NNZ + fft_plan.inverse_f64_ops_per_stream())
 SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clocks (boost 1.98 GHz)
 S_MAIN, T_MAIN = 1024, 100
 T_SLOW = 50               # phase 3's chunks for the scan and xcorr configurations
@@ -446,8 +462,11 @@ def main():
     f64_floor_ms = {"forward_spectral": fft_plan.f64_ops_per_stream(),
                     "inverse_spectral": fft_plan.inverse_f64_ops_per_stream(),
                     "lag_corr_table": LAG_F64_OPS,
-                    "analysis_spectral": 2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream()}
-    for rec in (fwd_rec, inv_rec, xc_rec, an_rec):
+                    "analysis_spectral": 2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream(),
+                    "postfilter_synthesis":
+                        BAND_NNZ + fft_plan.inverse_f64_ops_per_stream(),
+                    "process_chunk_monokernel": T_MONO * mono_f64_ops()}
+    for rec in (fwd_rec, inv_rec, xc_rec, an_rec, post_rec, mono_rec):
         floor_ms = 1e3 * S * f64_floor_ms[rec["name"]] / F64_RATE
         log(f"[kernels] {rec['name']} {rec['ms']:.4f} ms (host-inclusive "
             f"{rec['host_ms']:.4f} ms), library "

@@ -39,8 +39,14 @@
 // of the forward's stages (spectral_common.cuh:inv_spectra), does ~22 k f64
 // operations, so it is shaped as the forward kernel: a block of 128 threads
 // takes 4 streams (one sequence each, the same 46 KB of shared memory), a
-// whole butterfly a thread.  The post-filter runs the same arithmetic with
-// its butterflies split over lanes, as the analysis does.
+// whole butterfly a thread.  The post-filter moves ~13 KB a stream and adds
+// to the inverse's arithmetic ~3 k band operations a stream: with the band
+// tables in their compact form (each bin touches two bands), an
+// interpolation is 2 FMAs a bin and a band energy a sum over the band's own
+// bins.  So it takes the inverse's shape: a block of 128 threads takes 4
+// streams (47 KB of shared memory, 4 blocks an SM), each band-level step a
+// (stream, band) a thread, each bin-level step the block's bins in turn, and
+// the inverse a butterfly a thread.
 //
 // The forward spectra feed the pitch, band-energy and silence decisions,
 // which sit on knife edges: a 2e-6 difference in X flips an int8 activation
@@ -68,9 +74,10 @@ constexpr int GF = 2;              // streams per block, forward
 constexpr int GI = 4;              // streams per block, inverse
 constexpr int FWD_THREADS = GF * FFT_LANES;   // 128: a butterfly of each stream
 constexpr int INV_THREADS = GI * FH / FFT_R2;  // 128: a butterfly of each stream
-constexpr int POST_THREADS = FS;   // one stream per block
-static_assert(GI * FH / FFT_R1 <= INV_THREADS && POST_THREADS >= 256,
-              "the inverse's stages need these threads (inv_spectra)");
+constexpr int GP = 4;              // streams per block, post-filter
+constexpr int POST_THREADS = GP * FH / FFT_R2;  // 128: a butterfly of each stream
+static_assert(GI * FH / FFT_R1 <= INV_THREADS && GP * FH / FFT_R1 <= POST_THREADS &&
+              GP * NB <= POST_THREADS, "the inverse's stages need these threads (inv_spectra)");
 
 __global__ void __launch_bounds__(FWD_THREADS, 4)
 forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
@@ -113,7 +120,7 @@ inverse_kernel(const float* __restrict__ Y, const float* __restrict__ window,
   for (int i = threadIdx.x; i < FH + FFT_TABLE; i += blockDim.x)
     s_tw[i] = i < FH ? tw[i] : tw[WS + i - FH];
   __syncthreads();
-  inv_spectra<false>(
+  inv_spectra(
       ns, s_z, s_tw, s_tw + FH, window,
       [&](int g, int k) {
         const float* y = Y + (size_t)(s0 + g) * 2 * NBIN;
@@ -126,26 +133,31 @@ inverse_kernel(const float* __restrict__ Y, const float* __restrict__ window,
       });
 }
 
-__global__ void __launch_bounds__(POST_THREADS)
+__global__ void __launch_bounds__(POST_THREADS, 4)
 postfilter_kernel(const float* __restrict__ dX, const float* __restrict__ dP,
                   const float* __restrict__ dEx, const float* __restrict__ dEp,
                   const float* __restrict__ dExp, const float* __restrict__ g,
                   const float* __restrict__ lastg, const float* __restrict__ Ex,
                   const uint8_t* __restrict__ silence,
                   const float* __restrict__ smem,
-                  const float* __restrict__ band, const float* __restrict__ interp,
+                  const float4* __restrict__ pairs, const int2* __restrict__ ranges,
                   const float* __restrict__ window, const double2* __restrict__ tw,
                   float* __restrict__ out, float* __restrict__ smem_out,
-                  float* __restrict__ lastg_out) {
-  __shared__ PostSmem sm;
-  const int s = blockIdx.x;
-  const size_t b = (size_t)s * NB, row = (size_t)s * FS;
-  float* o = out + row;
-  postfilter_body(sm, dX + (size_t)s * 2 * NBIN, dP + (size_t)s * 2 * NBIN,
-                  dEx + b, dEp + b, dExp + b, g + b, lastg + b, Ex + b,
-                  silence[s] != 0, smem + row, band, interp, window, tw,
-                  [o](int n, float v) { o[n] = v; }, smem_out + row,
-                  lastg_out + b);
+                  float* __restrict__ lastg_out, int S) {
+  extern __shared__ __align__(16) unsigned char post_smem[];
+  PostSmem<GP>& sm = *reinterpret_cast<PostSmem<GP>*>(post_smem);
+  __shared__ PostIO io[GP];
+  const int s0 = blockIdx.x * GP, ns = min(GP, S - s0);
+  if (threadIdx.x < ns) {
+    const size_t s = s0 + threadIdx.x, b = s * NB, row = s * FS;
+    io[threadIdx.x] = PostIO{dX + s * 2 * NBIN, dP + s * 2 * NBIN, dEx + b, dEp + b,
+                             dExp + b, g + b, lastg + b, Ex + b, smem + row,
+                             smem_out + row, lastg_out + b, silence[s] != 0};
+  }
+  __syncthreads();
+  postfilter_streams(
+      ns, sm, io, pairs, ranges, window, tw, tw + WS,
+      [&](int gg, int n, float v) { out[(size_t)(s0 + gg) * FS + n] = v; });
 }
 
 }  // namespace
@@ -179,23 +191,29 @@ int rnnt_inverse_spectral(const float* Y, const float* window,
 }
 
 // dX, dP [S, 962] re|im (the delayed frame); dEx, dEp, dExp, g, lastg, Ex
-// [S, 32]; silence [S] bytes (0 or 1); synthesis_mem [S, 480]; band [481, 32]
-// (bin energies -> bands); interp [32, 481] (band values -> bins); window
-// [960]; twiddles [960 + 509] f64 pairs, as for rnnt_forward_spectral.  Writes out [S, 480],
-// synthesis_mem_out [S, 480], lastg_out [S, 32].
+// [S, 32]; silence [S] bytes (0 or 1); synthesis_mem [S, 480]; pairs
+// [2, 481, 4] f32 and ranges [32, 2] int32, the compact band tables
+// (postfilter_body.cuh); window [960]; twiddles [960 + 509] f64 pairs, as
+// for rnnt_forward_spectral.  Writes out [S, 480], synthesis_mem_out
+// [S, 480], lastg_out [S, 32].
 int rnnt_postfilter_synthesis(const float* dX, const float* dP, const float* dEx,
                               const float* dEp, const float* dExp, const float* g,
                               const float* lastg, const float* Ex,
                               const uint8_t* silence, const float* synthesis_mem,
-                              const float* band, const float* interp,
+                              const float* pairs, const int* ranges,
                               const float* window, const double* twiddles,
                               float* out, float* synthesis_mem_out,
                               float* lastg_out, int S, void* stream) {
   if (S <= 0) return 0;
-  postfilter_kernel<<<S, POST_THREADS, 0, (cudaStream_t)stream>>>(
-      dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence, synthesis_mem, band,
-      interp, window, reinterpret_cast<const double2*>(twiddles), out,
-      synthesis_mem_out, lastg_out);
+  const int smem = (int)sizeof(PostSmem<GP>);
+  cudaError_t e = cudaFuncSetAttribute(
+      postfilter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  postfilter_kernel<<<(S + GP - 1) / GP, POST_THREADS, smem, (cudaStream_t)stream>>>(
+      dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence, synthesis_mem,
+      reinterpret_cast<const float4*>(pairs), reinterpret_cast<const int2*>(ranges),
+      window, reinterpret_cast<const double2*>(twiddles), out, synthesis_mem_out,
+      lastg_out, S);
   return (int)cudaGetLastError();
 }
 

@@ -388,7 +388,7 @@ __device__ __forceinline__ void fwd_spectra(int nstr, double2* buf,
 }
 
 // The inverse spectra of nstr streams by all threads of the block
-// (nstr * FH / FFT_R2 <= blockDim.x, or nstr * 256 with SPLIT): for each
+// (nstr * FH / FFT_R2 <= blockDim.x, a butterfly a thread): for each
 // stream g, x[n] = sum_k c_k (re_k cos(2 pi k n / 960) - im_k sin(2 pi k n /
 // 960)), c_k = 1 at k = 0 and 480 and 2 elsewhere, times the window, each
 // sample rounded once to f32.  load(g, k) gives bin k <= 480 of stream g as
@@ -399,7 +399,7 @@ __device__ __forceinline__ void fwd_spectra(int nstr, double2* buf,
 // (cos, sin)(2 pi m / 960) for m < 480, ft the FFT table (either in device or
 // shared memory).  Starts after the caller's last barrier on buf and on
 // what load reads; has none after the stores.
-template <bool SPLIT, class Load, class Store>
+template <class Load, class Store>
 __device__ __forceinline__ void inv_spectra(int nstr, double2* buf,
                                             const double2* __restrict__ tw,
                                             const double2* __restrict__ ft,
@@ -426,13 +426,8 @@ __device__ __forceinline__ void inv_spectra(int nstr, double2* buf,
     z[swz(2 * j + 1)] = csub(a, b);
   }
   __syncthreads();
-  if constexpr (SPLIT) {
-    fft_stage16_split<FFT_NS1, FFT_OFF1>(nstr, buf, ft);
-    fft_stage15_split<FFT_NS2, FFT_OFF2>(nstr, buf, ft);
-  } else {
-    fft_stage<FFT_R1, FFT_NS1, FFT_OFF1>(nstr, buf, ft);
-    fft_stage<FFT_R2, FFT_NS2, FFT_OFF2>(nstr, buf, ft);
-  }
+  fft_stage<FFT_R1, FFT_NS1, FFT_OFF1>(nstr, buf, ft);
+  fft_stage<FFT_R2, FFT_NS2, FFT_OFF2>(nstr, buf, ft);
   // x[2m] = Re F[m], x[2m+1] = -Im F[m] for F = FFT(conj Z); a thread
   // makes samples 2m, 2m + 1 and their partners 480 later
   const float2* w2 = reinterpret_cast<const float2*>(window);

@@ -37,6 +37,11 @@ from .transform import device_table
 
 MONO = CONFIGURATIONS["mono"]
 
+# The HP biquad's Toeplitz term in csrc/frame.cu (HP_TILE there): a thread
+# owns HP_TILE consecutive outputs of one stream, then the stream's mirror
+# tile, so that every thread runs as many steps (biquad_tiles).
+HP_TILE = 8
+
 # The leaves of a DenoiseState in its field order (the network's state
 # flattened): the order of State in csrc/frame.cu.
 _STATE = ("analysis_mem", "synthesis_mem", "pitch_buf", "last_gain",
@@ -51,10 +56,10 @@ class _State(ctypes.Structure):
 
 
 # The launch's arguments: the order of ChunkArgs in csrc/frame.cu.
-_POINTERS = (("pcm", "out", "vad", "xp", "feats", "silence", "gains")
+_POINTERS = (("pcm", "out", "vad", "xp", "feats", "silence", "gains", "vad1")
              + cuda_rnn.PackedRNN._fields
-             + ("hp_k", "hp_rowA", "hp_SA", "hp_SB", "window", "tw", "band",
-                "interp", "dct"))
+             + ("hp_k", "hp_rowA", "hp_SA", "hp_SB", "window", "tw", "pairs",
+                "ranges", "dct"))
 
 
 class _ChunkArgs(ctypes.Structure):
@@ -78,6 +83,16 @@ def process_chunk_monokernel_plain(params, state, pcm: torch.Tensor,
     fused = dataclasses.replace(rt, monokernel=False, analysis=True,
                                 postfilter=True, xcorr=False)
     return process_frames_tm_i16(params, state, pcm, fused, plain=True)
+
+
+def biquad_tiles(n: int = FRAME_SIZE, tile: int = HP_TILE) -> list:
+    """The Toeplitz term's schedule for one stream, as csrc/frame.cu runs it:
+    per thread, the first outputs i0 of its two tiles (tile p, then tile
+    n / tile - 1 - p).  A tile's outputs i0 + r, r < tile, each sum
+    k_d x[i0 + r - 1 - d] over the taps d = 0 .. i0 + tile - 2 in order, the
+    samples before the frame read as zeros."""
+    tiles = n // tile
+    return [(p * tile, (tiles - 1 - p) * tile) for p in range(tiles // 2)]
 
 
 def _check_config(params, rt: RuntimeConfig) -> None:
@@ -156,23 +171,22 @@ def process_chunk_monokernel(params, state, pcm: torch.Tensor,
     dst = [torch.empty_like(t) for t in src]
     tmp = [None] * len(src)
     tmp[_RNN] = [torch.empty_like(t) for t in src[_RNN]]
-    xp = torch.empty((S, 4 * FREQ_SIZE), dtype=f32, device=dev)
+    xp = torch.empty((2, S, 2 * FREQ_SIZE), dtype=f32, device=dev)
     feats = torch.empty((S, F), dtype=f32, device=dev)
     silence = torch.empty((S,), dtype=torch.uint8, device=dev)
     gains = torch.empty((S, NB), dtype=f32, device=dev)
-    window = cuda_spectral.kernel_tables(str(dev))[0]
-    tw = cuda_spectral.fft_tables(str(dev))
+    vad1 = torch.empty((S,), dtype=f32, device=dev)
     d = str(dev)
+    window, tw = cuda_spectral.kernel_tables(d)[0], cuda_spectral.fft_tables(d)
+    pairs, ranges = cuda_spectral.band_tables(d)
 
     def ptrs(ts):
         return _State(*(None if t is None else t.data_ptr() for t in ts))
     args = _ChunkArgs(
         ptrs(src), ptrs(dst), ptrs(tmp),
-        *(t.data_ptr() for t in (pcm, out, vad, xp, feats, silence, gains,
-                                 *pk, *_hp_tables(d), window, tw,
-                                 device_table("band", d),
-                                 device_table("interp", d),
-                                 device_table("dct", d))),
+        *(t.data_ptr() for t in (pcm, out, vad, xp, feats, silence, gains, vad1,
+                                 *pk, *_hp_tables(d), window, tw, pairs,
+                                 ranges, device_table("dct", d))),
         S, T, F, C, N, NB)
     kernels.launch(_lib().rnnt_process_chunk, "process_chunk", dev,
                    ctypes.byref(args))

@@ -8,7 +8,10 @@ work in natural order: spectra are ``[S, 962]`` re|im.  The forward
 spectra are two 480-point f64 FFTs per stream, one per input, and the
 inverse spectrum (alone and inside the post-filter) one 480-point f64 FFT of
 the same stages, all planned in ``fft_plan.py``; the wrappers hand each
-kernel their twiddle table.  Each wrapper launches its kernel for CUDA
+kernel their twiddle table.  The post-filter (and the whole-chunk kernel)
+read the band tables in a compact form built here from the dense ones
+(:func:`band_tables`: each bin touches two neighbouring bands).  Each
+wrapper launches its kernel for CUDA
 tensors and uses its plain version (dense DFT matmuls from
 ``transform.py``, in f64 for the forward spectra; the post-filter's band
 arithmetic as ``denoise.py`` ran it) for CPU tensors.
@@ -26,7 +29,7 @@ from .. import kernels, tables
 from ..config import (FRAME_SIZE, FREQ_SIZE, NB_BANDS, PITCH_BUF_SIZE,
                       WINDOW_SIZE)
 from . import fft_plan
-from .transform import (device_table, frame_synthesis, per_bin, pitch_filter,
+from .transform import (frame_synthesis, per_bin, pitch_filter,
                         windowed_forward_transform, windowed_inverse_transform)
 
 # Largest window start that stays inside the pitch buffer; both versions
@@ -92,6 +95,56 @@ def kernel_tables(device: str):
     tw[0::q] = [[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]]
     return (torch.from_numpy(tables.full_window().copy()).to(device),
             torch.from_numpy(tw).to(device))
+
+
+# The rows of band_tables' pairs, as postfilter_body.cuh names them.
+PAIR_INTERP, PAIR_BAND = 0, 1
+
+
+def band_pairs(m: np.ndarray) -> np.ndarray:
+    """The compact form of a bin -> band table m [481, 32] whose rows have
+    their nonzeros in two neighbouring bands at most: [481, 4] f32 rows
+    (w0, w1, b, 0) with m[k, b] = w0, m[k, b + 1] = w1 and every other entry
+    of row k zero; b <= 30 (a row whose only nonzero is band 31 has b = 30,
+    w0 = 0), and a row of zeros has b = 0.  Derived from the nonzeros of m
+    itself; raises if a row has any other shape."""
+    nb = m.shape[1]
+    out = np.zeros((m.shape[0], 4), np.float32)
+    for k, row in enumerate(m):
+        nz = np.flatnonzero(row)
+        if not len(nz):
+            continue
+        b = min(int(nz[0]), nb - 2)
+        if nz[-1] > b + 1:
+            raise ValueError(f"bin {k} touches bands {list(nz)}")
+        out[k] = row[b], row[b + 1], b, 0.0
+    return out
+
+
+def band_ranges(m: np.ndarray) -> np.ndarray:
+    """[32, 2] int32 (lo, hi): band b's nonzero bins in m [481, 32] are the
+    contiguous range lo <= k < hi; raises if they are not contiguous."""
+    out = np.zeros((m.shape[1], 2), np.int32)
+    for b in range(m.shape[1]):
+        nz = np.flatnonzero(m[:, b])
+        if len(nz) and (np.diff(nz) != 1).any():
+            raise ValueError(f"band {b}'s bins are not contiguous")
+        out[b] = (nz[0], nz[-1] + 1) if len(nz) else (0, 0)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def band_tables(device: str):
+    """The band tables in the compact form the post-filter and the
+    whole-chunk kernel read (each bin touches at most two neighbouring
+    bands): (pairs [2, 481, 4] f32, band_pairs of the interpolation table
+    ``tables.interp_matrix()`` (band values -> bins) and of the energy table
+    ``tables.band_matrix()`` transposed (bins -> bands); ranges [32, 2]
+    int32, band_ranges of the energy table)."""
+    dense = {PAIR_INTERP: tables.interp_matrix(), PAIR_BAND: tables.band_matrix().T}
+    pairs = np.stack([band_pairs(dense[i]) for i in range(len(dense))])
+    return (torch.from_numpy(pairs).to(device),
+            torch.from_numpy(band_ranges(dense[PAIR_BAND])).to(device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,7 +238,7 @@ def postfilter_synthesis(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
     kernels.require(silence, "silence", (S,), torch.bool, dev)
     kernels.require(synthesis_mem, "synthesis_mem", (S, FRAME_SIZE), f32, dev)
     window, tw = kernel_tables(str(dev))[0], fft_tables(str(dev))
-    band, interp = device_table("band", str(dev)), device_table("interp", str(dev))
+    pairs, ranges = band_tables(str(dev))
     out = torch.empty((S, FRAME_SIZE), dtype=f32, device=dev)
     smem_out = torch.empty_like(out)
     lastg_out = torch.empty((S, NB_BANDS), dtype=f32, device=dev)
@@ -193,7 +246,7 @@ def postfilter_synthesis(dX, dP, dEx, dEp, dExp, g, lastg, Ex, silence,
     kernels.launch(
         _lib().rnnt_postfilter_synthesis, "postfilter_synthesis", dev,
         p(dX), p(dP), p(dEx), p(dEp), p(dExp), p(g), p(lastg), p(Ex),
-        p(silence), p(synthesis_mem), p(band), p(interp), p(window), p(tw),
+        p(silence), p(synthesis_mem), p(pairs), p(ranges), p(window), p(tw),
         p(out), p(smem_out), p(lastg_out), S)
     postfilter_synthesis.launches += 1
     return out, smem_out, lastg_out

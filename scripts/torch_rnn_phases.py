@@ -11,7 +11,11 @@ median over blocks of the slowest warp's cycle count at the phase's end, the
 phase's own cycles, and those cycles in microseconds at the clock the run
 implies (the kernel's time per call by chip_smoke.gpu_time over its median
 block's cycles).  The marks cost a few stores; the kernel's time is printed
-beside them.
+beside them.  With --cold, each step follows a launch of the analysis
+kernel (other code and data, as inside the whole-chunk kernel, where each
+frame's spans run between two steps): the step's time is then the median
+of the steps timed one at a time by CUDA events, and the phases are the
+last such step's.
 """
 
 import argparse
@@ -25,7 +29,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from chip_smoke import MODEL, gpu_time  # noqa: E402
+from chip_smoke import MODEL, SLEEP_CYCLES_PER_S, gpu_time  # noqa: E402
 
 PHASES = (["start", "staged (inputs, conv1 weights, schedule)", "conv1",
            "conv2 input packed", "conv2 products", "conv2 barrier"]
@@ -37,6 +41,8 @@ PHASES = (["start", "staged (inputs, conv1 weights, schedule)", "conv1",
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--streams", type=int, default=1024)
+    ap.add_argument("--cold", action="store_true",
+                    help="launch the analysis kernel before each timed step")
     args = ap.parse_args()
     import torch
 
@@ -61,8 +67,32 @@ def main():
     st = RNNState(*(torch.tanh(torch.randn(S, w, generator=g, device=dev))
                     for w in (130, 256, 384, 384, 384)))
     sil = torch.rand(S, generator=g, device=dev) < 0.125
-    ms = gpu_time(lambda: cuda_rnn.compute_rnn_step(params, st, feats, sil))
-    cuda_rnn.compute_rnn_step(params, st, feats, sil)
+    def step():
+        return cuda_rnn.compute_rnn_step(params, st, feats, sil)
+    if args.cold:
+        from rnnoise_tpu_torch.dsp import cuda_analysis
+        pbuf = 3000 * torch.randn(S, 1728, generator=g, device=dev)
+        ds = 300 * torch.randn(S, 864, generator=g, device=dev)
+        bp = torch.randint(0, 147, (2, S), generator=g, device=dev, dtype=torch.int32)
+        prev = torch.randint(60, 700, (S,), generator=g, device=dev, dtype=torch.int32)
+        an = (pbuf[:, -960:-480].contiguous(), pbuf[:, -480:].contiguous(), pbuf, ds,
+              bp[0], bp[1], prev, torch.rand(S, generator=g, device=dev))
+        times = []
+        for _ in range(21):
+            # the card held busy while the host enqueues, so the step starts
+            # as the analysis ends (chip_smoke.gpu_time's way)
+            torch.cuda._sleep(int(1e-3 * SLEEP_CYCLES_PER_S))
+            cuda_analysis.analysis_spectral(*an)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            step()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = float(np.median(times[1:]))
+    else:
+        ms = gpu_time(step)
+        step()
     torch.cuda.synchronize()
     n_blocks = min(256, -(-S // 8))
     buf = (ctypes.c_longlong * (256 * cuda_rnn.RNN_WARPS * len(PHASES)))()
@@ -72,7 +102,8 @@ def main():
     ends = clk - clk[:, :, :1].min(axis=1, keepdims=True)    # since the block began
     ends = np.median(ends.max(axis=1), axis=0)               # slowest warp, median block
     us_per_cycle = 1e3 * ms / ends[-1]
-    print(f"S={S}: {ms * 1e3:.2f} us per call, {ends[-1]:.0f} cycles in the median "
+    print(f"S={S}{' after the analysis kernel' if args.cold else ''}: "
+          f"{ms * 1e3:.2f} us per call, {ends[-1]:.0f} cycles in the median "
           f"block ({1 / us_per_cycle / 1e3:.3f} GHz implied)", flush=True)
     for k, name in enumerate(PHASES):
         own = ends[k] - (ends[k - 1] if k else 0.0)

@@ -219,6 +219,29 @@ def test_monokernel(dev):
     assert int((kst.last_period != pst.last_period).sum()) <= 2
 
 
+@pytest.mark.parametrize("T", [1, 2, 3])
+@pytest.mark.parametrize("S", [1, 7, 9, 37])
+def test_monokernel_ragged(dev, S, T):
+    """The whole-chunk kernel at ragged S (the last block has fewer than 8
+    streams, every span masks its empty slots) and T of both parities (the
+    network's state alternates between the output and a scratch copy),
+    against its plain version from a warm state: the tolerances of
+    chip_smoke.py phase 2, the caller's state untouched."""
+    params = load_model_file(MODEL_BLOB, device=dev)
+    pcm = torch.from_numpy(_signal(np.random.default_rng(80 + S), S, 4 + T)).to(dev)
+    st, _, _ = process_frames_tm_i16(params, init_state(S, device=dev), pcm[:4],
+                                     CONFIGURATIONS["fused"])
+    saved = [t.clone() for t in (st.pitch_buf, st.synthesis_mem, st.lastg, *st.rnn)]
+    kst, ko, kv = cuda_frame.process_chunk_monokernel(params, st, pcm[4:])
+    assert all(torch.equal(a, b) for a, b in
+               zip(saved, (st.pitch_buf, st.synthesis_mem, st.lastg, *st.rnn)))
+    pst, po, pv = cuda_frame.process_chunk_monokernel_plain(params, st, pcm[4:])
+    assert int((ko.int() - po.int()).abs().max()) <= 4
+    assert float((kv - pv).abs().max()) <= 2e-3
+    assert float((kst.lastg - pst.lastg).abs().max()) <= 1e-3
+    assert int((kst.last_period != pst.last_period).sum()) <= 2
+
+
 @pytest.mark.parametrize("config", sorted(CONFIGURATIONS))
 def test_main_path_kernels_vs_plain(dev, config):
     params = load_model_file(MODEL_BLOB, device=dev)
@@ -259,9 +282,9 @@ def test_inverse_spectral_kernel_ragged(dev, S):
 
 @pytest.mark.parametrize("S", RAGGED)
 def test_postfilter_kernel_ragged(dev, S):
-    """The post-filter with its lane-split inverse FFT at ragged S, every
-    3rd stream silent, against its plain version (the tolerances of
-    chip_smoke.py phase 2)."""
+    """The post-filter (4 streams a block, the inverse a butterfly a thread)
+    at ragged S, every 3rd stream silent, against its plain version (the
+    tolerances of chip_smoke.py phase 2)."""
     g = torch.Generator(device=dev).manual_seed(60 + S)
     x = 3000 * torch.randn(S, 960, generator=g, device=dev)
     p = 0.7 * x + 500 * torch.randn(S, 960, generator=g, device=dev)
