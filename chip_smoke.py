@@ -16,7 +16,11 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              (``host_ms``, its time to enqueue included); the forward
              and inverse spectra, the lag table, the analysis, the
              post-filter and the whole-chunk kernel also log the f64 floor
-             of their own design's arithmetic.
+             of their own design's arithmetic (the analysis and the
+             whole-chunk kernel beside their earlier design's, before the
+             lag table and energies went to the f64 tensor cores); the
+             analysis' lag table and energies alone against their plain
+             versions.
 3. main    — for each kernel configuration of process_frames_tm_i16
              (config.CONFIGURATIONS: scan, xcorr, fused, mono): S=1024, two
              chained calls of T=100 frames (T=50 for scan and xcorr, the slow
@@ -51,6 +55,10 @@ FFT1024_OPS = 2.5 * 1024 * 10          # flops of one real 1024-point FFT
 # clock on each of the 132 SMs at the 1.98 GHz boost clock; the floor of a
 # design's own f64 arithmetic, printed beside (not instead of) its bound
 F64_RATE = 64 * 132 * 1.98e9
+# f64 tensor-core multiply-adds per second: 128 a clock on each SM, the rate
+# of the mma.sync m16n8kN f64 shapes (67 TFLOP/s at the boost clock;
+# scripts/torch_f64_mma_rate.py measures it)
+F64_TC_RATE = 128 * 132 * 1.98e9
 # the lag table's f64 multiply-adds per stream (385 x 480) and the fixed-order
 # sums of its 4 tap slices
 LAG_F64_OPS = 385 * 480 + 385 * 3
@@ -59,16 +67,27 @@ BAND_NNZ = 723
 
 
 def mono_f64_ops():
-    """f64 operations of the whole-chunk kernel's design per stream and
-    frame: the biquad's Toeplitz term and state sums, the 5
-    autocorrelations, the coarse search's 147 lags and energies over 240
-    taps, the lag table's 385 lags and energies over 480 taps, both
-    forward FFTs, the 3 band sums and 2 DCTs, and the post-filter (its band
-    energies and inverse FFT)."""
-    from rnnoise_tpu_torch.dsp import fft_plan
-    return (480 * 479 // 2 + 2 * 480 + 5 * 864 + 2 * 147 * 240 + 2 * 385 * 480
+    """(f64 pipe operations, f64 tensor-core multiply-adds) of the
+    whole-chunk kernel's design per stream and frame: on the pipe the
+    biquad's Toeplitz term and state sums, the 5 autocorrelations, the coarse
+    search's 147 lags and energies over 240 taps, both forward FFTs, the 3
+    band sums and 2 DCTs, the post-filter (its band energies and inverse
+    FFT) and the lag table's squares and lag 384; on the tensor cores the
+    lag table and energies (cuda_xcorr.lag_mma_ops)."""
+    from rnnoise_tpu_torch.dsp import cuda_xcorr, fft_plan
+    mma, vec = cuda_xcorr.lag_mma_ops()
+    return (480 * 479 // 2 + 2 * 480 + 5 * 864 + 2 * 147 * 240
             + fft_plan.f64_ops_per_stream() + 3 * BAND_NNZ + 2 * 32 * 32
-            + BAND_NNZ + fft_plan.inverse_f64_ops_per_stream())
+            + BAND_NNZ + fft_plan.inverse_f64_ops_per_stream() + vec), mma
+
+
+def design_floor_ms(S, vec_ops, mma_ops=0):
+    """The f64 floor of a design's own arithmetic for S streams, in ms: its
+    f64 pipe operations at F64_RATE, then its tensor-core multiply-adds at
+    F64_TC_RATE (one after the other, as a block runs them)."""
+    return 1e3 * S * (vec_ops / F64_RATE + mma_ops / F64_TC_RATE)
+
+
 SLEEP_CYCLES_PER_S = 1.98e9  # torch.cuda._sleep counts SM clocks (boost 1.98 GHz)
 S_MAIN, T_MAIN = 1024, 100
 T_SLOW = 50               # phase 3's chunks for the scan and xcorr configurations
@@ -299,6 +318,21 @@ def main():
     a_args = (*frame_inputs(2400), prev_p, prev_g)
     ds = a_args[3]
 
+    # the analysis' lag table and energies alone (its f64 tensor-core tiles)
+    lt_k = cuda_analysis.lag_energy_table(ds)
+    lt_p = cuda_analysis.lag_energy_table_plain(ds)
+    torch.cuda.synchronize()
+    lt_err = max(rel_row_err(a, b) for a, b in zip(lt_k, lt_p))
+    lt_diff = [int((a != b).sum()) for a, b in zip(lt_k, lt_p)]
+    log(f"[kernels] analysis lag table and energies max err / row max {lt_err:.3e} "
+        f"(tolerance 1e-6); values differing from the plain versions: bx "
+        f"{lt_diff[0]}, yy {lt_diff[1]} of {S * 385} each")
+    check(lt_err <= 1e-6, "the analysis' lag table disagrees with its plain version")
+    lag_mma, lag_vec = cuda_xcorr.lag_mma_ops()
+    log(f"[kernels] analysis lag table and energies alone "
+        f"{gpu_time(lambda: cuda_analysis.lag_energy_table(ds)):.4f} ms, its products at "
+        f"the tensor cores' rate {design_floor_ms(S, 0, lag_mma):.4f} ms")
+
     bx_k = cuda_xcorr.lag_corr_table_kernel(ds)
     bx_p = cuda_xcorr.lag_corr_table_plain(ds)
     torch.cuda.synchronize()
@@ -457,22 +491,34 @@ def main():
         f"bound {mono_rec['bound_ms']:.4f} ms ({mono_rec['bound_by']})")
 
     # the f64 floor of each redesigned span's own arithmetic, a figure of its
-    # design (fft_plan's and the lag tile's operation counts at F64_RATE),
-    # logged beside the measured times and not part of the kernels line
-    f64_floor_ms = {"forward_spectral": fft_plan.f64_ops_per_stream(),
-                    "inverse_spectral": fft_plan.inverse_f64_ops_per_stream(),
-                    "lag_corr_table": LAG_F64_OPS,
-                    "analysis_spectral": 2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream(),
-                    "postfilter_synthesis":
-                        BAND_NNZ + fft_plan.inverse_f64_ops_per_stream(),
-                    "process_chunk_monokernel": T_MONO * mono_f64_ops()}
+    # design (fft_plan's and the lag tiles' operation counts at F64_RATE and
+    # F64_TC_RATE), logged beside the measured times and not part of the
+    # kernels line; the analysis' and the monokernel's earlier design ran the
+    # lag table and energies on the f64 pipe (2 x LAG_F64_OPS a stream)
+    mono_vec, mono_mma = mono_f64_ops()
+    f64_floor_ms = {
+        "forward_spectral": design_floor_ms(S, fft_plan.f64_ops_per_stream()),
+        "inverse_spectral": design_floor_ms(S, fft_plan.inverse_f64_ops_per_stream()),
+        "lag_corr_table": design_floor_ms(S, LAG_F64_OPS),
+        "analysis_spectral": design_floor_ms(
+            S, lag_vec + fft_plan.f64_ops_per_stream(), lag_mma),
+        "postfilter_synthesis": design_floor_ms(
+            S, BAND_NNZ + fft_plan.inverse_f64_ops_per_stream()),
+        "process_chunk_monokernel": design_floor_ms(
+            S, T_MONO * mono_vec, T_MONO * mono_mma)}
+    old_floor_ms = {
+        "analysis_spectral": design_floor_ms(
+            S, 2 * LAG_F64_OPS + fft_plan.f64_ops_per_stream()),
+        "process_chunk_monokernel": design_floor_ms(
+            S, T_MONO * (mono_vec - lag_vec + 2 * 385 * 480))}
     for rec in (fwd_rec, inv_rec, xc_rec, an_rec, post_rec, mono_rec):
-        floor_ms = 1e3 * S * f64_floor_ms[rec["name"]] / F64_RATE
+        old = old_floor_ms.get(rec["name"])
         log(f"[kernels] {rec['name']} {rec['ms']:.4f} ms (host-inclusive "
             f"{rec['host_ms']:.4f} ms), library "
             f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)}"
             f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), f64 floor of "
-            f"its design {floor_ms:.4f} ms")
+            f"its design {f64_floor_ms[rec['name']]:.4f} ms"
+            + ("" if old is None else f" (the f64-pipe design's {old:.4f} ms)"))
     counted = ((rnn_rec, cuda_rnn.compute_rnn_step),
                (fwd_rec, spec.forward_spectral), (inv_rec, spec.inverse_spectral),
                (xc_rec, cuda_xcorr.lag_corr_table_kernel),

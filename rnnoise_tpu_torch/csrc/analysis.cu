@@ -14,33 +14,50 @@
 // k = 2..15 (pitch.c:422-528); the final +-1 offset; then, with the period
 // T0 resolved, the windows [mem | x] and pitch_buf[768 - T0 : 1728 - T0] and
 // both forward DFTs, as rnnt_forward_spectral computes them.
+// rnnt_lag_energy_table runs the analysis' lag table and energies alone, so
+// that they can be held against their plain versions.
 //
 // What bounds them: a direct correlation is 385 x 480 f64 multiply-adds per
 // stream (twice that with the energies) against 5 KB of input and output,
-// and the two spectra two 480-point complex f64 FFTs (~44 k f64 operations), so
-// the f64 issue rate bounds the lag table and the analysis.  The lag table
-// converts ds to f64 once, as it enters shared memory, and gives each
-// thread 7 consecutive lags and a slice of 120 taps, with a window of ds
-// sliding through its registers (analysis_body.cuh: lag_partials): per tap
-// one conflict-free shared load and one broadcast feed 7 multiply-adds, and
-// the 4 slices of a lag meet in one fixed order through shared memory.  The analysis is one block
-// per stream; the ranking and the ladder are serial per stream (one thread:
-// 14 candidate steps of a few operations each), and the spectra share
-// spectral_common.cuh's FFT with the forward-spectrum kernel: with one
-// stream a block, its radix-16 and radix-15 butterflies are split over 4
-// and 8 lanes (the same operations in the same order), and X and P equal
-// the forward kernel's bit for bit.  The TPU's DFT-1024 correlation, one-hot
-// lookups and grouped ladder windows work around a matrix unit and are not
-// carried over.
+// and the two spectra two 480-point complex f64 FFTs (~44 k f64 operations),
+// so f64 arithmetic bounds both kernels.  The lag table alone converts ds to
+// f64 once, as it enters shared memory, and gives each thread 7 consecutive
+// lags and a slice of 120 taps, with a window of ds sliding through its
+// registers (analysis_body.cuh: lag_partials): per tap one conflict-free
+// shared load and one broadcast feed 7 multiply-adds on the f64 pipe, and
+// the 4 slices of a lag meet in one fixed order through shared memory.
+//
+// The analysis puts the lag table and its energies on the f64 tensor cores,
+// at twice the f64 pipe's rate (analysis_body.cuh: lag_energy_mma): per
+// stream 3 tiles of 128 lags, each the 16 x 8 output of a chain of mma.sync
+// m16n8k8 f64 products over 74 k-steps of 8 taps for each table (A a Hankel
+// matrix of ds, squared for the energies, B a Toeplitz band of x or its 0/1
+// band), 444 products and 455 k multiply-adds a stream, so the tensor-core
+// rate bounds the products (m8n8k4, the other f64 shape, runs at half the
+// rate: scripts/torch_f64_mma_rate.py).  A block takes AG streams,
+// LAG_WARPS = 2 warps each: one runs a stream's lag table, the other its
+// energies; one warp a stream then runs the fine search's ratio, its argmax
+// and the ladder (unrolled) on its lane 0, and every thread runs a
+// butterfly of the block's forward FFTs (spectral_common.cuh:fwd_spectra,
+// the forward-spectrum kernel's shape: 64 threads a stream, the twiddles
+// staged in shared memory), so X and P equal the forward kernel's bit for
+// bit.  4 blocks (16 warps, ~47 KB of shared memory and 122 registers a
+// thread each) stay resident on an SM, enough warps for the tensor cores.
+// The earlier shape, one stream to a 512-thread block, ran the lag table on
+// the f64 pipe in 4 tap slices, its FFT butterflies split over 4 and 8
+// lanes to keep 512 threads busy on one stream, and its ladder on one
+// thread while 511 waited at the barrier; with the streams of a block
+// taken together, neither the split FFT nor the idle block is needed.  The
+// TPU's DFT-1024 correlation, one-hot lookups and grouped ladder windows
+// work around a matrix unit and are not carried over.
 //
 // Numerics: pitch ranking sits on ~1e-4 knife edges.  The lag table and the
 // energies sum products of two floats, which are exact in f64, in f64 and
-// round once to f32, as the plain versions (f64 convolutions) do; every f32
-// step of the ranking and the ladder uses the _rn intrinsics, so nvcc
-// contracts nothing into an FMA that PyTorch does not, and constants are
-// rounded from double as PyTorch rounds a Python scalar.
-//
-// The analysis itself is analysis_body.cuh, which frame.cu shares.
+// round once to f32, as the plain versions (f64 convolutions) do; only the
+// order of the f64 additions differs between the kernels and the plain
+// versions.  Every f32 step of the ranking and the ladder uses the _rn
+// intrinsics, so nvcc contracts nothing into an FMA that PyTorch does not,
+// and constants are rounded from double as PyTorch rounds a Python scalar.
 
 #include "analysis_body.cuh"
 
@@ -48,7 +65,7 @@ namespace {
 
 using namespace rnnt;
 
-constexpr int XG = 2;                              // streams per block
+constexpr int XG = 2;                              // streams per block, lag table
 constexpr int XCORR_THREADS = XG * LAG_THREADS;    // 512
 
 __global__ void __launch_bounds__(XCORR_THREADS)
@@ -59,14 +76,63 @@ xcorr_kernel(const float* __restrict__ ds, float* __restrict__ bx, int S) {
   const int s = blockIdx.x * XG + g;
   if (s < S) load_ds64(s_ds[g], ds + (size_t)s * DS, t, LAG_THREADS);
   __syncthreads();
-  if (s < S) lag_partials<false>(s_ds[g], t, s_part[g]);
+  if (s < S) lag_partials(s_ds[g], t, s_part[g]);
   __syncthreads();
   if (s < S)
     for (int i = t; i < NLAGS; i += LAG_THREADS)
-      lag_finish<false>(s_part[g], i, bx + (size_t)s * NLAGS, nullptr);
+      lag_finish(s_part[g], i, bx + (size_t)s * NLAGS);
 }
 
-__global__ void __launch_bounds__(ANALYSIS_THREADS)
+constexpr int AG = 2;                              // streams per block, analysis
+constexpr int AN_THREADS = AG * LAG_WARPS * 32;    // 128
+// the radix-2 butterflies of the block's FFTs a thread
+constexpr int AN_K = (AG * FH / FFT_R0 + AN_THREADS - 1) / AN_THREADS;
+static_assert(LAG_WARPS * 32 >= FFT_LANES, "a butterfly of each stream a thread");
+
+// The analysis' shared memory: ds in f64 and the tables of the fine search,
+// then the FFT's buffer in their place; the twiddles and the windows' starts.
+struct __align__(16) AnalysisSmem {
+  struct Lag {
+    double ds[AG][DS];
+    float bx[AG][NLAGS], yy[AG][NLAGS], xc2[AG][NL2], q[AG][NL2];
+  };
+  union {
+    Lag lag;
+    double2 fft[AG * 2 * FH];
+  };
+  double2 tw[NBIN + FFT_TABLE];    // the base twiddles k <= 480, the FFT table
+  int start[AG];
+};
+
+// ds rows s0 .. s0 + ns - 1 into d [AG][DS] f64 by the block's AN_THREADS
+// threads, 4 values a load where ds is 16-byte aligned, every load of a
+// thread issued before its stores.
+__device__ __forceinline__ void stage_ds(double* d, const float* ds, int s0, int ns) {
+  static_assert(DS % 4 == 0, "rows of whole float4s");
+  constexpr int N4 = AG * DS / 4, PER = (N4 + AN_THREADS - 1) / AN_THREADS;
+  if (reinterpret_cast<uintptr_t>(ds) & 15) {
+    for (int i = threadIdx.x; i < ns * DS; i += AN_THREADS) d[i] = (double)ds[(size_t)s0 * DS + i];
+    return;
+  }
+  const float4* src = reinterpret_cast<const float4*>(ds + (size_t)s0 * DS);
+  float4 v[PER];
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * AN_THREADS;
+    if (i < ns * (DS / 4)) v[u] = src[i];
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int i = threadIdx.x + u * AN_THREADS;
+    if (i < ns * (DS / 4)) {
+      double2* o = reinterpret_cast<double2*>(d + 4 * i);
+      o[0] = make_double2(v[u].x, v[u].y);
+      o[1] = make_double2(v[u].z, v[u].w);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(AN_THREADS, 4)
 analysis_kernel(const float* __restrict__ mem, const float* __restrict__ x,
                 const float* __restrict__ pbuf, const float* __restrict__ ds,
                 const int* __restrict__ bp0, const int* __restrict__ bp1,
@@ -74,13 +140,59 @@ analysis_kernel(const float* __restrict__ mem, const float* __restrict__ x,
                 const float* __restrict__ prev_gain,
                 const float* __restrict__ window, const double2* __restrict__ tw,
                 float* __restrict__ X, float* __restrict__ P,
-                int* __restrict__ T0_out, float* __restrict__ gain_out) {
+                int* __restrict__ T0_out, float* __restrict__ gain_out, int S) {
   __shared__ AnalysisSmem sm;
-  const int s = blockIdx.x;
-  analysis_body(sm, ds + (size_t)s * DS, mem + (size_t)s * FS, x + (size_t)s * FS,
-                pbuf + (size_t)s * PBUF, bp0[s], bp1[s], prev_period[s],
-                prev_gain[s], window, tw, X + (size_t)s * 2 * NBIN,
-                P + (size_t)s * 2 * NBIN, T0_out + s, gain_out + s);
+  const int s0 = blockIdx.x * AG, ns = min(AG, S - s0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  stage_ds(sm.lag.ds[0], ds, s0, ns);
+#pragma unroll
+  for (int i = threadIdx.x; i < NBIN + FFT_TABLE; i += AN_THREADS)
+    sm.tw[i] = i < NBIN ? tw[i] : tw[WS + i - NBIN];
+  __syncthreads();
+  lag_energy_mma<LAG_WARPS>(ns, sm.lag.ds[0], DS, sm.lag.bx[0], sm.lag.yy[0], NLAGS);
+  __syncthreads();
+  if (warp < ns) {                                   // a warp a stream
+    const int s = s0 + warp;
+    const float* bx = sm.lag.bx[warp];
+    const float* yy = sm.lag.yy[warp];
+    const int b0 = bp0[s], b1 = bp1[s];
+    for (int l = lane; l < NL2; l += 32)
+      fine_ratio(bx, yy, l, b0, b1, sm.lag.xc2[warp], sm.lag.q[warp]);
+    __syncwarp();
+    const int at = warp_argmax(sm.lag.q[warp], NL2, -1);
+    if (lane == 0) {
+      float gain;
+      const int T0 = resolve_period<14>(bx, yy, sm.lag.xc2[warp], at, prev_period[s],
+                                    prev_gain[s], &gain);
+      T0_out[s] = T0;
+      gain_out[s] = gain;
+      sm.start[warp] = min(max(PBUF - WS - T0, 0), MAX_START);
+    }
+  }
+  __syncthreads();
+  fwd_spectra<AN_K>(
+      ns, sm.fft, sm.tw, sm.tw + NBIN, window,
+      [&](int g, int n) {
+        const size_t s = s0 + g;
+        return n < FS ? mem + s * FS + n : x + s * FS + (n - FS);
+      },
+      [&](int g) { return pbuf + (size_t)(s0 + g) * PBUF + sm.start[g]; },
+      [&](int g, int seq, int k, float re, float im) {
+        float* o = (seq ? P : X) + (size_t)(s0 + g) * 2 * NBIN;
+        o[k] = re;
+        o[NBIN + k] = im;
+      });
+}
+
+__global__ void __launch_bounds__(AN_THREADS)
+lag_energy_kernel(const float* __restrict__ ds, float* __restrict__ bx,
+                  float* __restrict__ yy, int S) {
+  __shared__ double s_ds[AG][DS];
+  const int s0 = blockIdx.x * AG, ns = min(AG, S - s0);
+  stage_ds(s_ds[0], ds, s0, ns);
+  __syncthreads();
+  lag_energy_mma<LAG_WARPS>(ns, s_ds[0], DS, bx + (size_t)s0 * NLAGS,
+                            yy + (size_t)s0 * NLAGS, NLAGS);
 }
 
 }  // namespace
@@ -108,9 +220,17 @@ int rnnt_analysis_spectral(const float* mem, const float* x,
                            float* X, float* P, int* T0, float* gain, int S,
                            void* stream) {
   if (S <= 0) return 0;
-  analysis_kernel<<<S, ANALYSIS_THREADS, 0, (cudaStream_t)stream>>>(
+  analysis_kernel<<<(S + AG - 1) / AG, AN_THREADS, 0, (cudaStream_t)stream>>>(
       mem, x, pitch_buf, ds, bp0, bp1, prev_period, prev_gain, window,
-      reinterpret_cast<const double2*>(twiddles), X, P, T0, gain);
+      reinterpret_cast<const double2*>(twiddles), X, P, T0, gain, S);
+  return (int)cudaGetLastError();
+}
+
+// ds [S, 864] -> the analysis' lag table bx and energies yy [S, 385].
+int rnnt_lag_energy_table(const float* ds, float* bx, float* yy, int S, void* stream) {
+  if (S <= 0) return 0;
+  lag_energy_kernel<<<(S + AG - 1) / AG, AN_THREADS, 0, (cudaStream_t)stream>>>(
+      ds, bx, yy, S);
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,9 @@
 //   4. the coarse search: 147 lags x 240 taps and their window energies
 //      (f64, rounded once), find_best_pitch's top-2 by ratio with the first
 //      of equal maxima;
-//   5. the lag table and energies (385 lags x 480 taps, f64, rounded once),
-//      the fine search and the doubling ladder (analysis_body.cuh:
+//   5. the lag table and energies (385 lags x 480 taps, f64, rounded once)
+//      as f64 tensor-core products (analysis_body.cuh: lag_energy_mma), the
+//      fine search and the doubling ladder (analysis_body.cuh:
 //      resolve_period), the window and both forward spectra
 //      (spectral_common.cuh:fwd_spectra);
 //   6. the band energies and correlations (f64, rounded once), the
@@ -55,14 +56,15 @@
 // the f64 pipes sat idle (PERF.md §5).  Shared memory holds all 8 streams'
 // working set of one span at a time (the analysis' 140 KB, the network's
 // 158 KB) beside 43 KB kept across the spans; the forward FFTs read their
-// inputs from device memory.  The Toeplitz term, the coarse search and
-// the lag table are register-tiled: a thread owns HP_TILE consecutive
-// outputs (the biquad: the tiles of a stream paired, short with long, so
-// every thread does as many multiply-adds) or 7 consecutive lags, and a
-// window of inputs slides through its registers, one shared load feeding
-// several multiply-adds.  The band tables are read in their compact form
-// (postfilter_body.cuh), staged in shared memory: a band sum runs over the
-// band's own bins.  Each span is a function of its own (its own register
+// inputs from device memory.  The Toeplitz term and the coarse search are
+// register-tiled: a thread owns HP_TILE consecutive outputs (the biquad:
+// the tiles of a stream paired, short with long, so every thread does as
+// many multiply-adds) or 7 consecutive lags, and a window of inputs slides
+// through its registers, one shared load feeding several multiply-adds.
+// The lag table and its energies run on the f64 tensor cores, as in the
+// analysis kernel, 2 warps a stream.  The band tables are read in their
+// compact form (postfilter_body.cuh), staged in shared memory: a band sum
+// runs over the band's own bins.  Each span is a function of its own (its own register
 // allocation under the 128 registers a thread that 16 warps allow: inlined,
 // the spans spilled twice as much) reaching the arguments and shared memory
 // through file-scope symbols; the network's arguments for both directions
@@ -100,14 +102,15 @@
 enum FramePhase {
   PH_FRAME, PH_BIQUAD, PH_LPC, PH_COARSE, PH_LAG, PH_FINE, PH_SPECTRA,
   PH_FEATURES, PH_NETWORK, PH_POST, PH_HANDOVER, PH_BIQUAD_IN, PH_FEAT_BINS,
-  PH_FEAT_BANDS, PH_POST_BINS, PH_POST_BANDS
+  PH_FEAT_BANDS, PH_POST_BINS, PH_POST_BANDS, PH_COARSE_PICK
 };
 #define FRAME_PHASE_NAMES                                                    \
   "frame start;biquad;decimation and LPC;coarse search;lag table;"         \
   "fine search and ladder;forward spectra;band features and gate;"         \
   "network step;post-filter;state handover;biquad: the input;"             \
   "band features: per bin;band features: band sums;"                      \
-  "post-filter: bands and comb;post-filter: band energies"
+  "post-filter: bands and comb;post-filter: band energies;"               \
+  "coarse search: the candidates"
 #ifdef RNNT_FRAME_PHASES
 constexpr int FRAME_PHASE_BLOCKS = 132, FRAME_PHASE_WARPS = 16, FRAME_MARKS = 128;
 __device__ long long frame_phase_clock[FRAME_PHASE_BLOCKS][FRAME_PHASE_WARPS][FRAME_MARKS];
@@ -188,10 +191,10 @@ namespace {
 using namespace rnnt;
 
 constexpr int G = RNN_G;                  // streams per block
-constexpr int THREADS = ANALYSIS_THREADS;  // 512
+constexpr int THREADS = 512;
 constexpr int NWARPS = THREADS / 32;
 static_assert(NWARPS == RNN_WARPS, "the network's step is split over the block's warps");
-static_assert(2 * G <= NWARPS, "a warp (or two) a stream");
+static_assert(G * LAG_WARPS <= NWARPS, "a warp (or LAG_WARPS) a stream");
 constexpr int NC = 147;                   // coarse lags
 constexpr int LEN4 = 240;                 // coarse correlation length
 constexpr int NFEAT = 2 * NB + 1;         // 65 features
@@ -209,14 +212,12 @@ constexpr int HP_THREADS = G * HP_TILES / 2;        // 240
 constexpr int XPAD = HP_TILE, XSTR = 497;
 static_assert(FS % (2 * HP_TILE) == 0 && XSTR >= XPAD + FS && XSTR % 16 == 1 &&
               HP_THREADS <= THREADS / 2, "the biquad's tiles");
-// Lags per thread of the coarse search and of the lag table; ds rows in
-// f64, a zero tail (the lag table's last window slides one past the end)
-// and an odd stride.
+// Lags per thread of the coarse search; ds rows in f64 with an odd stride
+// (the coarse search's two streams in a warp on other banks).
 constexpr int CT = 7, CTILES = NC / CT;             // 21 tiles a stream
-constexpr int LT = LAG_TILE, LTILES = NLAGS / LT;   // 7, 55 tiles a stream
 constexpr int DSTR = 873;
-static_assert(NC % CT == 0 && NLAGS % LT == 0 && G * LTILES <= THREADS &&
-              DSTR >= DS_PAD && DSTR % 2 == 1, "the lag tiles");
+static_assert(NC % CT == 0 && G * CTILES <= THREADS && DSTR >= DS && DSTR % 2 == 1,
+              "the coarse tiles and the ds rows");
 
 // Shared memory kept across the spans of a frame, and the chunk's constants.
 struct __align__(16) Persist {
@@ -294,24 +295,6 @@ __device__ __forceinline__ void copy_mapped(int n, Src src, Dst dst) {
       if (i < n) *dst(i) = v[u];
     }
   }
-}
-
-// The first index of the largest q[i], i < n, with q[skip] taken as -inf
-// (torch.argmax; all -inf gives 0), by one warp.
-__device__ __forceinline__ int warp_argmax(const float* q, int n, int skip) {
-  const int lane = threadIdx.x & 31;
-  float best = -CUDART_INF_F;
-  int at = n;
-  for (int i = lane; i < n; i += 32) {
-    const float v = i == skip ? -CUDART_INF_F : q[i];
-    if (v > best || (at == n && v == best)) { best = v; at = i; }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oa = __shfl_xor_sync(0xffffffffu, at, off);
-    if (ob > best || (ob == best && oa < at)) { best = ob; at = oa; }
-  }
-  return at;
 }
 
 // The block's rows s0 .. s0+ns-1 of a [S, width] tensor, copied.
@@ -582,49 +565,18 @@ __device__ __noinline__ void span_search(int t, int s0, int ns) {
       ps.bp[warp][1] = count >= 2 ? i1 : (count == 1 ? 0 : 1);
     }
   }
+  FRAME_MARK(PH_COARSE_PICK);
   // 5. the lag table bx[i] = sum_j ds[384+j] ds[i+j] and the energies
-  // yy[i] = sum_j ds[i+j]^2 over all 480 taps: LT lags a thread
-  if (tid < ns * LTILES) {
-    const int g = tid / LTILES, i0 = (tid - g * LTILES) * LT;
-    const double* ds = aw.ds64 + g * DSTR;
-    double acc[LT], e[LT], w[LT];
-#pragma unroll
-    for (int r = 0; r < LT; ++r) {
-      acc[r] = e[r] = 0.0;
-      w[r] = ds[i0 + r];
-    }
-    for (int j = 0; j < N2; ++j) {
-      const double xj = ds[XOFF + j];
-#pragma unroll
-      for (int r = 0; r < LT; ++r) {
-        acc[r] = fma(xj, w[r], acc[r]);
-        e[r] = fma(w[r], w[r], e[r]);
-      }
-#pragma unroll
-      for (int r = 0; r + 1 < LT; ++r) w[r] = w[r + 1];
-      w[LT - 1] = ds[i0 + LT + j];
-    }
-#pragma unroll
-    for (int r = 0; r < LT; ++r) {
-      aw.r2.lag.bx[g][i0 + r] = (float)acc[r];
-      aw.r2.lag.yy[g][i0 + r] = (float)e[r];
-    }
-  }
+  // yy[i] = sum_j ds[i+j]^2 over all 480 taps, LAG_WARPS warps a stream
+  lag_energy_mma<LAG_WARPS>(ns, aw.ds64, DSTR, aw.r2.lag.bx[0], aw.r2.lag.yy[0], NLAGS);
   __syncthreads();
   FRAME_MARK(PH_LAG);
 
-  // the fine search within 2 lags of twice the coarse candidates: ratio
-  // (xc 1e-12)^2 / max(1 + yy, 1) over lags with xc > 0
+  // the fine search within 2 lags of twice the coarse candidates
   for (int i = tid; i < ns * NL2; i += nt) {
     const int g = i / NL2, l = i - g * NL2;
-    const int b0 = 2 * ps.bp[g][0], b1 = 2 * ps.bp[g][1];
-    const bool cand = abs(l - b0) <= 2 || abs(l - b1) <= 2;
-    const float xc = cand ? fmaxf(aw.r2.lag.bx[g][l], -1.0f) : 0.0f;
-    aw.r2.lag.xc2[g][l] = xc;
-    const float num = __fmul_rn((float)1e-12, xc);
-    aw.r2.lag.q[g][l] = xc > 0.0f
-        ? __fdiv_rn(__fmul_rn(num, num), fmaxf(__fadd_rn(1.0f, aw.r2.lag.yy[g][l]), 1.0f))
-        : -CUDART_INF_F;
+    fine_ratio(aw.r2.lag.bx[g], aw.r2.lag.yy[g], l, ps.bp[g][0], ps.bp[g][1],
+               aw.r2.lag.xc2[g], aw.r2.lag.q[g]);
   }
   __syncthreads();
   if (warp < ns) {                                   // a warp a stream
@@ -632,7 +584,7 @@ __device__ __noinline__ void span_search(int t, int s0, int ns) {
     if (lane == 0) {
       const int s = s0 + warp;
       float gain;
-      const int T0 = resolve_period(aw.r2.lag.bx[warp], aw.r2.lag.yy[warp],
+      const int T0 = resolve_period<1>(aw.r2.lag.bx[warp], aw.r2.lag.yy[warp],
                                     aw.r2.lag.xc2[warp], at, d.last_period[s],
                                     d.last_gain[s], &gain);
       d.last_period[s] = T0;
@@ -660,7 +612,7 @@ __device__ __noinline__ void span_spectra(int t, int s0, int ns) {
     const float* const pb = a.dst.pitch_buf + (size_t)(s0 + g0) * PBUF;
     float* const Xo = spec_buf(a, t, 0) + (size_t)(s0 + g0) * 2 * NBIN;
     float* const Po = spec_buf(a, t, 1) + (size_t)(s0 + g0) * 2 * NBIN;
-    fwd_spectra<false, (FFT_G * FH / FFT_R0 + THREADS - 1) / THREADS>(
+    fwd_spectra<(FFT_G * FH / FFT_R0 + THREADS - 1) / THREADS>(
         min(FFT_G, ns - g0), reinterpret_cast<double2*>(work), ps.tw, ps.tw + NBIN, a.window,
         [&](int g, int n) {
           return n < FS ? mem + g * FS + n : pb + g * PBUF + (PBUF - FS) + (n - FS);

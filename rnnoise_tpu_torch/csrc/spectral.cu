@@ -31,8 +31,8 @@
 // thread, and writes X and P row by row.  Of the shapes tried on the H100
 // (1 to 3 streams a block, 64 to 256 threads a stream, more blocks an SM at
 // the price of spills, inputs double-buffered by cp.async), this was the
-// fastest at S = 1024; the lane-split butterflies of the analysis took 3x
-// as long.  The twiddles come from an f64 table built in Python
+// fastest at S = 1024; butterflies split over 4 and 8 lanes (one stream a
+// block) took 3x as long.  The twiddles come from an f64 table built in Python
 // (dsp/fft_plan.py) and appended to the 960 base twiddles; every kernel here
 // takes that extended table.
 // The inverse moves ~7.7 KB a stream and, as one 480-point complex f64 FFT
@@ -92,7 +92,7 @@ forward_kernel(const float* __restrict__ mem, const float* __restrict__ x,
   __shared__ double2 s_tw[NBIN + FFT_TABLE];
   for (int i = threadIdx.x; i < NBIN + FFT_TABLE; i += blockDim.x)
     s_tw[i] = i < NBIN ? tw[i] : tw[WS + i - NBIN];
-  fwd_spectra<false, (GF * FH / FFT_R0 + FWD_THREADS - 1) / FWD_THREADS>(
+  fwd_spectra<(GF * FH / FFT_R0 + FWD_THREADS - 1) / FWD_THREADS>(
       ns, s_z, s_tw, s_tw + NBIN, window,
       [&](int g, int n) {
         const size_t s = s0 + g;

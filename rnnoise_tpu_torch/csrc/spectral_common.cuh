@@ -196,105 +196,6 @@ __device__ __forceinline__ void fft_stage(int nseq, double2* buf,
   __syncthreads();
 }
 
-// The same two stages with each butterfly shared by a group of lanes, for
-// a block that transforms few streams (the analysis: one): the same
-// operations on the same values in the same order, so the same results,
-// from 4 lanes per radix-16 butterfly (a column DFT-4 each, then a row DFT-4
-// each after a transpose by shuffles) and 8 per radix-15 one (5 lanes' DFT-3s,
-// then 3 lanes' DFT-5s), with a few registers a thread.  Lanes of a warp
-// with work all take part in the shuffles; a block needs nseq * 256 threads.
-__device__ __forceinline__ double2 shfl2(double2 v, int src, int width) {
-  return make_double2(__shfl_sync(0xffffffffu, v.x, src, width),
-                      __shfl_sync(0xffffffffu, v.y, src, width));
-}
-
-template <int K>
-__device__ __forceinline__ double2 pick(const double2 (&a)[K], int e) {
-  double2 r = a[0];
-#pragma unroll
-  for (int k = 1; k < K; ++k)
-    if (e == k) r = a[k];
-  return r;
-}
-
-template <int NSPAN, int OFF>
-__device__ __forceinline__ void fft_stage16_split(int nseq, double2* buf,
-                                                  const double2* __restrict__ ft) {
-  constexpr int R = 16, M = FH / R;
-  const int i = threadIdx.x, lanes = nseq * M * 4;
-  const bool warp_on = (i & ~31) < lanes, on = i < lanes;
-  const int c = i & 3, bf = on ? i >> 2 : 0;
-  const int q = bf / M, j = bf - q * M, jm = j % NSPAN;
-  double2* z = buf + q * FH;
-  const double2* W = ft + OFF + (R - 1) * NSPAN;
-  double2 b[4];
-  if (warp_on) {
-    double2 y[4];                        // column c: points c + 4 n1
-#pragma unroll
-    for (int n1 = 0; n1 < 4; ++n1) {
-      const int r = c + 4 * n1;
-      y[n1] = z[swz(j + r * M)];
-      if (r > 0) y[n1] = cmul(y[n1], ft[OFF + (r - 1) * NSPAN + jm]);
-    }
-    dft4(y[0], y[1], y[2], y[3]);
-#pragma unroll
-    for (int k1 = 1; k1 < 4; ++k1)
-      if (c > 0) y[k1] = cmul(y[k1], W[c * k1]);
-    double2 got[4];                      // got[d]: column (c + d) & 3 at k1 = c
-#pragma unroll
-    for (int d = 0; d < 4; ++d) got[d] = shfl2(pick(y, (c - d) & 3), (c + d) & 3, 4);
-#pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) b[n2] = pick(got, (n2 - c) & 3);
-    dft4(b[0], b[1], b[2], b[3]);        // bins c + 4 k2
-  }
-  __syncthreads();
-  if (on) {
-    const int base = (j - jm) * R + jm;
-#pragma unroll
-    for (int k2 = 0; k2 < 4; ++k2) z[swz(base + (c + 4 * k2) * NSPAN)] = b[k2];
-  }
-  __syncthreads();
-}
-
-template <int NSPAN, int OFF>
-__device__ __forceinline__ void fft_stage15_split(int nseq, double2* buf,
-                                                  const double2* __restrict__ ft) {
-  constexpr int R = 15, M = FH / R;
-  const int i = threadIdx.x, lanes = nseq * M * 8;
-  const bool warp_on = (i & ~31) < lanes, on = i < lanes;
-  const int l = i & 7, bf = on ? i >> 3 : 0;
-  const int q = bf / M, j = bf - q * M, jm = j % NSPAN;
-  double2* z = buf + q * FH;
-  const double2* W = ft + OFF + (R - 1) * NSPAN;
-  double2 b[5];
-  if (warp_on) {
-    const int n2 = min(l, 4), k1 = min(l, 2);
-    double2 a[3];                        // the DFT-3 of points 5 n1 + 3 n2
-#pragma unroll
-    for (int n1 = 0; n1 < 3; ++n1) {
-      const int r = (5 * n1 + 3 * n2) % 15;
-      a[n1] = z[swz(j + r * M)];
-      if (r > 0) a[n1] = cmul(a[n1], ft[OFF + (r - 1) * NSPAN + jm]);
-    }
-    dft3(a[0], a[1], a[2], W[5]);
-#pragma unroll
-    for (int m = 0; m < 5; ++m)
-#pragma unroll
-      for (int kk = 0; kk < 3; ++kk) {
-        const double2 t = shfl2(a[kk], m, 8);
-        if (kk == k1) b[m] = t;
-      }
-    dft5(b, W[3], W[6]);
-  }
-  __syncthreads();
-  if (on && l < 3) {
-    const int base = (j - jm) * R + jm;
-#pragma unroll
-    for (int k2 = 0; k2 < 5; ++k2) z[swz(base + ((10 * l + 6 * k2) % 15) * NSPAN)] = b[k2];
-  }
-  __syncthreads();
-}
-
 // Samples n and n + 1 (n even) of an input row: one 8-byte load where the
 // pair is aligned.
 __device__ __forceinline__ float2 load_pair(const float* v) {
@@ -302,9 +203,9 @@ __device__ __forceinline__ float2 load_pair(const float* v) {
   return make_float2(v[0], v[1]);
 }
 
-// Both forward spectra of nstr streams by all threads of the block
-// (nstr * FFT_LANES <= blockDim.x, or nstr * 512 with SPLIT; K >= the
-// radix-2 butterflies per thread, nstr * 240 / blockDim.x).  Stream g's
+// Both forward spectra of nstr streams by all threads of the block, a
+// butterfly a thread (nstr * FFT_LANES <= blockDim.x; K >= the radix-2
+// butterflies per thread, nstr * 240 / blockDim.x).  Stream g's
 // X input is [mem | x], whose samples n, n + 1 (n even) lie at xin(g, n),
 // and its P input the pitch window at pin(g).  Each input is windowed in
 // f64 (exact: products of two floats) as complex samples
@@ -316,7 +217,7 @@ __device__ __forceinline__ float2 load_pair(const float* v) {
 // 0 for X and 1 for P.  tw holds the base twiddles (cos, sin)(2 pi m / 960)
 // for m <= 480, ft the FFT table (either in device or shared memory).  Starts after the caller's last barrier on buf; has
 // none after the stores.
-template <bool SPLIT, int K, class XIn, class PIn, class Store>
+template <int K, class XIn, class PIn, class Store>
 __device__ __forceinline__ void fwd_spectra(int nstr, double2* buf,
                                             const double2* __restrict__ tw,
                                             const double2* __restrict__ ft,
@@ -360,13 +261,8 @@ __device__ __forceinline__ void fwd_spectra(int nstr, double2* buf,
     }
   }
   __syncthreads();
-  if constexpr (SPLIT) {
-    fft_stage16_split<FFT_NS1, FFT_OFF1>(nseq, buf, ft);
-    fft_stage15_split<FFT_NS2, FFT_OFF2>(nseq, buf, ft);
-  } else {
-    fft_stage<FFT_R1, FFT_NS1, FFT_OFF1>(nseq, buf, ft);
-    fft_stage<FFT_R2, FFT_NS2, FFT_OFF2>(nseq, buf, ft);
-  }
+  fft_stage<FFT_R1, FFT_NS1, FFT_OFF1>(nseq, buf, ft);
+  fft_stage<FFT_R2, FFT_NS2, FFT_OFF2>(nseq, buf, ft);
   // bin k from a = C[k mod 480] and b = C[-k mod 480]; a thread makes
   // bins k and 480 - k, which read the same two points
   const auto bin = [&](int q, int k, double2 a, double2 b) {

@@ -12,8 +12,12 @@ gives for that window).  The coarse search stays outside, in PyTorch.
 The plain version is the port's own chain (``pitch.fine_search``,
 ``pitch.remove_doubling``, ``cuda_spectral.forward_spectral_plain``), with
 the lag table and the energies summed in f64 and rounded once, as the
-kernel sums them.  ``analysis_spectral`` launches the kernel for CUDA
-tensors and uses the plain version for CPU tensors.
+kernel sums them (on the f64 tensor cores, in the plan of
+``cuda_xcorr.lag_mma_tiles``).  ``analysis_spectral`` launches the kernel
+for CUDA tensors and uses the plain version for CPU tensors.
+:func:`lag_energy_table` runs the kernel's lag table and energies alone
+(``rnnt_lag_energy_table``), so that they can be held against their plain
+versions value by value.
 """
 
 from __future__ import annotations
@@ -31,11 +35,16 @@ from .cuda_xcorr import CORR_LEN, DS_LEN, N_LAGS, lag_corr_table_plain
 N_FINE = pitch.FINE_LAGS      # 294
 
 
+def lag_energy_table_plain(ds):
+    """Plain version of :func:`lag_energy_table`: the lag table and the
+    energies as f64 convolutions, each rounded once."""
+    return lag_corr_table_plain(ds), pitch.window_energy(ds, CORR_LEN, N_LAGS)
+
+
 def analysis_spectral_plain(mem, x, pitch_buf, ds, bp0, bp1, prev_period,
                             prev_gain):
     """Plain version of :func:`analysis_spectral`."""
-    bx = lag_corr_table_plain(ds)
-    yy = pitch.window_energy(ds, CORR_LEN, N_LAGS)    # f64, rounded once
+    bx, yy = lag_energy_table_plain(ds)
     syy = torch.clamp(1.0 + yy[:, :N_FINE], min=1.0)
     fine = pitch.fine_search(bx, syy, bp0, bp1)
     T0, gain = pitch.remove_doubling(ds, PITCH_MAX_PERIOD - fine, prev_period,
@@ -55,6 +64,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rnnt_analysis_spectral.restype = i
         lib.rnnt_analysis_spectral.argtypes = [p] * 14 + [i, p]
+        lib.rnnt_lag_energy_table.restype = i
+        lib.rnnt_lag_energy_table.argtypes = [p, p, p, i, p]
         _LIB = lib
     return _LIB
 
@@ -95,3 +106,22 @@ def analysis_spectral(mem, x, pitch_buf, ds, bp0, bp1, prev_period, prev_gain):
 
 
 analysis_spectral.launches = 0
+
+
+def lag_energy_table(ds):
+    """ds: [S, 864] f32 -> (bx, yy): [S, 385] f32 each, the lag table and the
+    sliding 480-tap energies as the analysis kernel computes them."""
+    if not ds.is_cuda:
+        return lag_energy_table_plain(ds)
+    S, dev = ds.shape[0], ds.device
+    ds = ds.contiguous()
+    kernels.require(ds, "ds", (S, DS_LEN), torch.float32, dev)
+    bx = torch.empty((S, N_LAGS), dtype=torch.float32, device=dev)
+    yy = torch.empty_like(bx)
+    kernels.launch(_lib().rnnt_lag_energy_table, "lag_energy_table", dev,
+                   kernels.ptr(ds), kernels.ptr(bx), kernels.ptr(yy), S)
+    lag_energy_table.launches += 1
+    return bx, yy
+
+
+lag_energy_table.launches = 0

@@ -19,7 +19,14 @@ and the largest difference relative to the row's maximum (the analysis: the
 streams whose period differs, and the spectra of the others; the
 whole-chunk kernel: PCM in LSB, VAD and the final periods), and at S=1024
 each build's time per call (chip_smoke.gpu_time: CUDA events, the calls
-back to back on the card), taken in turns (other, this, this, other).
+back to back on the card), taken in turns (other, this, this, other).  The
+analysis' own lag table and energies are compared value by value too:
+through each build's ``cuda_analysis.lag_energy_table`` where it has one,
+and for a build without it (whose analysis summed them in lag_partials' 4
+tap slices of 120 taps, each in ascending order, the slices added as
+((s0 + s1) + (s2 + s3))) through that order emulated in f64 on the card
+(exact: every product is one of two floats), checked first against the
+build's lag table, which sums bx in the same order.
 Exits 1 if the RNN step differs at all: its arithmetic is exact (int8 dots
 in s32), so no redesign may change a bit of it.
 """
@@ -99,6 +106,32 @@ def float_diff(xs, ys):
             f"1e-6 of the row's maximum, {rel:.2e} of the row's maximum)"), n == 0
 
 
+def slice_order_tables(ds):
+    """bx, yy [S, 385] f32 of ds [S, 864] summed in lag_partials' order: per
+    slice of 120 taps, in ascending order, then ((s0 + s1) + (s2 + s3)), in
+    f64 and rounded once."""
+    d = ds.double()
+    x, win = d[:, 384:], d.unfold(1, 385, 1)          # win[s, j, i] = d[s, i + j]
+    acc = torch.zeros(d.shape[0], 4, 385, dtype=torch.float64, device=d.device)
+    en = torch.zeros_like(acc)
+    for j in range(120):
+        jj = 120 * torch.arange(4, device=d.device) + j
+        w = win[:, jj, :]
+        acc = acc + x[:, jj, None] * w
+        en = en + w * w
+    return tuple(((t[:, 0] + t[:, 1]) + (t[:, 2] + t[:, 3])).float() for t in (acc, en))
+
+
+def lag_tables(mods, ds):
+    """(bx, yy, how) of a build's analysis for ds."""
+    an = mods["cuda_analysis"]
+    if hasattr(an, "lag_energy_table"):
+        return (*an.lag_energy_table(ds), "its lag_energy_table")
+    bx, yy = slice_order_tables(ds)
+    same = torch.equal(bx, mods["cuda_xcorr"].lag_corr_table_kernel(ds))
+    return bx, yy, f"lag_partials' order emulated (bx equal to its lag table: {same})"
+
+
 def compare(name, a, b):
     """(summary text, equal) of this build's outputs a against the other's."""
     if name == "analysis_spectral":
@@ -165,6 +198,11 @@ def main():
         warm, _, _ = process_frames_tm_i16(params, init_state(S, device=dev), pcm[:10],
                                            CONFIGURATIONS["fused"])
         chunk = pcm[10:].contiguous()
+        ours, theirs = lag_tables(mine, ds), lag_tables(other, ds)
+        torch.cuda.synchronize()
+        print(f"S={S} analysis lag table and energies: this build {ours[2]}, other "
+              f"build {theirs[2]}; bx: {float_diff([ours[0]], [theirs[0]])[0]}; yy: "
+              f"{float_diff([ours[1]], [theirs[1]])[0]}", flush=True)
         for name, fn in (
                 ("rnn_step",
                  lambda m: m["cuda_rnn"].compute_rnn_step(params, st, feats, sil)),

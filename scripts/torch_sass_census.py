@@ -7,8 +7,8 @@ optionally, another checkout's.
 
 Run on a machine with the CUDA toolkit (nvcc and cuobjdump).  Compiles each
 csrc/*.cu to a cubin, disassembles it with cuobjdump -sass and prints, per
-kernel, the static count of the f64 arithmetic (DFMA, DADD, DMUL), the
-int8 dot products (IDP, the IDP.4A of __dp4a) and int8 tensor-core
+kernel, the static count of the f64 arithmetic (DFMA, DADD, DMUL), the f64
+tensor-core products (DMMA), the int8 dot products (IDP, the IDP.4A of __dp4a) and int8 tensor-core
 products (IMMA), the conversions to and from f64 (F2F), the shared and
 device memory accesses (LDS, STS, LDG, STG), the shuffles and the
 barriers, and all instructions (SASS, the code's size); and, from ptxas (-Xptxas -v), each kernel's registers, stack frame
@@ -30,9 +30,10 @@ sys.path.insert(0, REPO)
 
 from rnnoise_tpu_torch import kernels  # noqa: E402
 
-KINDS = ("DFMA", "DADD", "DMUL", "IDP", "IMMA", "F2F", "LDS", "STS", "LDG", "STG", "SHFL", "BAR")
+KINDS = ("DFMA", "DADD", "DMUL", "DMMA", "IDP", "IMMA", "F2F", "LDS", "STS", "LDG", "STG",
+         "SHFL", "BAR")
 KERNELS = ("rnn_step_kernel", "forward_kernel", "inverse_kernel", "postfilter_kernel",
-           "xcorr_kernel", "analysis_kernel", "chunk_kernel")
+           "xcorr_kernel", "analysis_kernel", "lag_energy_kernel", "chunk_kernel")
 
 
 def kernel_name(symbol):

@@ -49,6 +49,31 @@ def test_lag_corr_table_matches_pallas_kernel():
                        torch.from_numpy(got))
 
 
+def test_lag_energy_table_matches_reference():
+    """The analysis' lag table and energies (on the CPU, their plain
+    version) against the JAX package's: the Pallas lag table in interpret
+    mode, and find_best_pitch's sliding energies, which JAX sums as an f32
+    running sum (so within 1e-4 of a row's largest)."""
+    rng = np.random.default_rng(43)
+    n = np.arange(864)
+    ds = np.stack([
+        speechlike(rng, 1728, f0=130.0, noise=0.1)[::2],
+        (300 * rng.standard_normal(864) * 10.0 ** (-3.0 * n / 863)).astype(np.float32),
+        np.where(n < 300, 3000.0, 0.3).astype(np.float32) * speechlike(rng, 1728, f0=90.0)[::2],
+        np.zeros(864, np.float32),
+    ])
+    before = cuda_analysis.lag_energy_table.launches
+    bx, yy = (t.numpy() for t in cuda_analysis.lag_energy_table(torch.from_numpy(ds)))
+    assert cuda_analysis.lag_energy_table.launches == before      # CPU: plain
+    assert bx.shape == yy.shape == (4, 385) and bx.dtype == yy.dtype == np.float32
+    ref = np.asarray(lag_corr_table_pallas(jnp.asarray(ds), interpret=True))
+    np.testing.assert_allclose(bx, ref, atol=3e-6 * max(np.abs(ref).max(), 1.0))
+    syy_ref = np.asarray(jpitch._sliding_syy(jnp.asarray(ds), 480, 385))
+    syy = np.maximum(1.0 + yy, 1.0)
+    assert (np.abs(syy - syy_ref) <= 1e-4 * syy_ref.max(1, keepdims=True)).all()
+    assert (yy >= 0).all() and not yy[3].any()
+
+
 def test_analysis_matches_pallas_kernel_over_a_chain():
     """The signals of tests/test_pallas.py's analysis test, over six chained
     frames: each frame's period and gain are the next one's continuity

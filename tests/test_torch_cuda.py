@@ -58,7 +58,9 @@ def dev():
 
 
 def _rel(a, b):
-    return float(((a - b).abs().amax(1) / b.abs().amax(1)).max())
+    """max over rows of max|a - b| / max|b| (a row of zeros against itself
+    gives 0)."""
+    return float(((a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1e-30)).max())
 
 
 def test_rnn_step_kernel(dev):
@@ -172,6 +174,63 @@ def test_analysis_kernel(dev):
     assert _rel(kX[same], pX[same]) <= 1e-4 and _rel(kP[same], pP[same]) <= 1e-4
     fX, fP = spec.forward_spectral(mem, x, pbuf, 1728 - 960 - kT)
     assert torch.equal(kX, fX) and torch.equal(kP, fP)
+
+
+def _analysis_args(dev, S, seed, fade=False):
+    """The analysis' inputs from a real decimation and coarse search of
+    generated PCM; with ``fade``, every stream is loud over the pitch
+    buffer's first 600 samples and near-silent after (ds loud at its start,
+    its last 480 values, x, near-silent)."""
+    rng = np.random.default_rng(seed)
+    pcm = torch.from_numpy(_signal(rng, S, 8)).to(dev).float()
+    pbuf = pcm[-4:].transpose(0, 1).reshape(S, -1)[:, -1728:].contiguous()
+    if fade:
+        pbuf[:, 600:] *= 1e-4
+    mem, x = pbuf[:, -960:-480], pbuf[:, -480:]
+    ds = pitch.pitch_downsample(pbuf)
+    bp0, bp1 = pitch.coarse_search(ds)
+    prev_p = torch.from_numpy(rng.integers(60, 700, S).astype(np.int32)).to(dev)
+    prev_g = torch.from_numpy(rng.random(S).astype(np.float32)).to(dev)
+    return mem, x, pbuf, ds, bp0, bp1, prev_p, prev_g
+
+
+@pytest.mark.parametrize("S,fade", [(1, False), (7, False), (37, False), (1024, False),
+                                    (37, True)])
+def test_analysis_kernel_ragged(dev, S, fade):
+    """At ragged S (blocks of 2 streams, the last one short) and at the main
+    path's S=1024, and with a loud start and a near-silent end: the
+    tolerances of test_analysis_kernel, X and P the forward kernel's bit for
+    bit."""
+    args = _analysis_args(dev, S, 60 + S, fade)
+    kX, kP, kT, kg = cuda_analysis.analysis_spectral(*args)
+    pX, pP, pT, pg = cuda_analysis.analysis_spectral_plain(*args)
+    same = kT == pT
+    assert int((~same).sum()) <= 2
+    assert float((kg - pg)[same].abs().max()) <= 1e-6
+    assert _rel(kX[same], pX[same]) <= 1e-4 and _rel(kP[same], pP[same]) <= 1e-4
+    fX, fP = spec.forward_spectral(*args[:3], 1728 - 960 - kT)
+    assert torch.equal(kX, fX) and torch.equal(kP, fP)
+
+
+def _ulps(a, b):
+    def key(v):
+        i = v.contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (key(a) - key(b)).abs()
+
+
+@pytest.mark.parametrize("S,fade", [(1, False), (7, False), (37, False), (37, True)])
+def test_lag_energy_table_kernel(dev, S, fade):
+    """The analysis' lag table and energies on the f64 tensor cores against
+    their plain versions (f64 convolutions rounded once): the lag table's
+    tolerance; each energy, a sum of squares, within an ulp."""
+    ds = _analysis_args(dev, S, 80 + S, fade)[3]
+    before = cuda_analysis.lag_energy_table.launches
+    bx, yy = cuda_analysis.lag_energy_table(ds)
+    assert cuda_analysis.lag_energy_table.launches == before + 1
+    pbx, pyy = cuda_analysis.lag_energy_table_plain(ds)
+    assert _rel(bx, pbx) <= 1e-6 and _rel(yy, pyy) <= 1e-6
+    assert int(_ulps(yy, pyy).max()) <= 1
 
 
 def test_postfilter_kernel(dev):

@@ -1,7 +1,9 @@
 """The plans of the redesigned spectrum and lag-table kernels, on CPU.
 
 The forward and inverse spectra's FFT (``csrc/spectral_common.cuh``) and the
-lag table's tiles (``csrc/analysis_body.cuh``) run only on the card.  Their
+lag table's tiles (``csrc/analysis_body.cuh``: ``lag_partials``, the table
+alone; the analysis' tensor-core tiles are ``tests/test_torch_lag_plan.py``'s)
+run only on the card.  Their
 plans live in Python (``dsp/fft_plan.py``, ``dsp/cuda_xcorr.py``) and the
 wrappers hand the FFT's twiddle table to the kernels; here numpy emulates
 the kernels' stage sequence and tile sums with exactly those tables and that
@@ -248,16 +250,15 @@ def test_silent_spectrum_gives_zero_output():
 def test_inverse_uses_the_forward_stages_and_table():
     """The inverse runs the forward's stages with the same radices, stage
     offsets and FFT table: inv_spectra calls the stage functions with the
-    template arguments fwd_spectra uses in its butterfly-a-thread shape (the
-    inverse has no lane-split shape: the post-filter takes its streams
-    together), and the standalone inverse kernel stages the base twiddles it
-    reads (k < 480) and the FFT table, with a butterfly of each of its
-    streams per thread."""
+    template arguments fwd_spectra uses (both a butterfly a thread), and the
+    standalone inverse kernel stages the base twiddles it reads (k < 480)
+    and the FFT table, with a butterfly of each of its streams per
+    thread."""
     src = _source("spectral_common.cuh")
     fwd = src[src.index("void fwd_spectra("):src.index("void inv_spectra(")]
     inv = src[src.index("void inv_spectra("):]
     calls = r"fft_stage\w*<[^>]+>\(n\w+, buf, ft\);"
-    whole = [c for c in re.findall(calls, fwd) if "_split" not in c]
+    whole = re.findall(calls, fwd)
     assert len(whole) == 2 and whole == \
         [c.replace("nstr", "nseq") for c in re.findall(calls, inv)]
     kern = _source("spectral.cu")
@@ -288,9 +289,8 @@ def test_lag_tile_shape_matches_kernel_source():
 def test_lag_partition_covers_each_pair_once_in_fixed_order():
     """Every (lag, tap) pair belongs to exactly one thread; each thread sums
     its taps in ascending order; a lag's slices meet as ((s0 + s1) + (s2 +
-    s3)).  Summed so in numpy, the table and the energies meet the plain f64
-    versions to 1e-12 of each row's maximum and their f32 rounding within
-    an ulp."""
+    s3)).  Summed so in numpy, the table meets the plain f64 version to
+    1e-12 of each row's maximum and its f32 rounding within an ulp."""
     part = cuda_xcorr.lag_tile_partition()
     seen = np.zeros((cuda_xcorr.N_LAGS, cuda_xcorr.CORR_LEN), np.int64)
     for _, lags, taps in part:
@@ -304,22 +304,17 @@ def test_lag_partition_covers_each_pair_once_in_fixed_order():
     ds[1] *= 1e-4                                   # a near-silent stream
     d = ds.astype(np.float64)
     x = d[:, cuda_xcorr.X_OFF:]
-    slices = np.zeros((S, cuda_xcorr.TAP_SLICES, cuda_xcorr.N_LAGS, 2))
+    slices = np.zeros((S, cuda_xcorr.TAP_SLICES, cuda_xcorr.N_LAGS))
     for t, lags, taps in part:
         sl = taps[0] // cuda_xcorr.TAPS_PER_SLICE
         for i in lags:
             acc = np.zeros(S)
-            e = np.zeros(S)
             for j in taps:                          # ascending, as the kernel
                 acc = acc + x[:, j] * d[:, i + j]
-                e = e + d[:, i + j] * d[:, i + j]
-            slices[:, sl, i] = np.stack([acc, e], 1)
+            slices[:, sl, i] = acc
     tot = (slices[:, 0] + slices[:, 1]) + (slices[:, 2] + slices[:, 3])
     plain64 = torch.nn.functional.conv1d(
         torch.from_numpy(d)[None], torch.from_numpy(x)[:, None], groups=S)[0].numpy()
-    assert _rel(tot[..., 0], plain64) <= 1e-12
+    assert _rel(tot, plain64) <= 1e-12
     bx = cuda_xcorr.lag_corr_table_plain(torch.from_numpy(ds)).numpy()
-    assert int(_ulps(tot[..., 0].astype(np.float32), bx).max()) <= 1
-    yy = pitch.window_energy(torch.from_numpy(ds), cuda_xcorr.CORR_LEN,
-                             cuda_xcorr.N_LAGS).numpy()
-    assert int(_ulps(tot[..., 1].astype(np.float32), yy).max()) <= 1
+    assert int(_ulps(tot.astype(np.float32), bx).max()) <= 1

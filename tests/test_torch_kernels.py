@@ -106,6 +106,8 @@ def _launch_all(recorded):
         "rnnt_analysis_spectral": lambda: cuda_analysis.analysis_spectral(
             rnd(S, 480), _cuda(rnd(S, 480)), rnd(S, 1728), rnd(S, 864), i32,
             i32, i32, rnd(S)),
+        "rnnt_lag_energy_table": lambda: cuda_analysis.lag_energy_table(
+            _cuda(rnd(S, 864))),
         "rnnt_process_chunk": lambda: cuda_frame.process_chunk_monokernel(
             params, init_state(S, device="cpu"), _cuda(pcm)),
     }
