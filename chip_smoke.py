@@ -31,6 +31,18 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              ticks, a detach and re-attach, pipelined mode and flush.
 5. timing  — for each configuration the median of chained S=1024, T=100
              chunks, taken in turns: realtime streams per card.
+6. train   — the training path: a synthetic corpus made with numpy from the
+             seed; tools.dump_features on the card (128 sequences of 2000
+             frames in one device batch), its launches of the forward
+             spectra counted and its records checked; 3 sparse train steps
+             from step 6000 at full width (cond 128, GRU 384, batch 128,
+             2000 frames): ms a step, frames a second, peak device memory;
+             one step on the card against one on the CPU from the same
+             params and batch (B=4, T=200), the gradients held to 1e-4 of
+             each leaf's largest value; the trained params exported as an
+             int8 blob, loaded and served by process_frames_tm_i16 on the
+             default configuration (S=64, T=20): one monokernel launch,
+             held to the parity budget against its plain version.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Without a CUDA device it exits 1 and prints no result.
@@ -95,6 +107,9 @@ T_MONO = 20               # phase 2's chunk for the whole-chunk kernel
 S_PARITY, T_PARITY = 64, 150
 TIMING_ROUNDS = 5
 SEED = 1234
+TRAIN_SEQS, TRAIN_T = 128, 2000      # phase 6: the reference's batch and length
+TRAIN_STEPS, TRAIN_FROM = 3, 6000    # sparse steps, from the sparsifier's start
+CHECK_B, CHECK_T = 4, 200            # phase 6's card-against-CPU step
 
 
 def log(*a):
@@ -170,6 +185,169 @@ def bound(n_bytes, flops):
     f32 operations over the f32 peak."""
     t_b, t_o = n_bytes / MEM_BW, flops / F32_PEAK
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def write_corpus(d, seed, seconds=60):
+    """speech.pcm, noise.pcm and fg.pcm (int16, 48 kHz) in ``d``: harmonic
+    speech-like tones at three pitches, gated every other half second so
+    that the VAD sees pauses; white noise; sparse clicks (the recipe of
+    tests/test_workflow_e2e.py)."""
+    rng = np.random.default_rng(seed)
+    n = 48000 * seconds
+    parts = []
+    for f0 in (100.0, 150.0, 220.0):
+        t = np.arange(n // 3) / 48000.0
+        sig = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6.28)) / k
+                  for k in range(1, 12))
+        sig = sig * (0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t))
+        parts.append(3000.0 * (sig + 0.02 * rng.standard_normal(n // 3)))
+    speech = np.concatenate(parts)
+    for i in range(0, len(speech), 48000):
+        speech[i + 24000:i + 48000] *= 0.001
+    fg = np.zeros(n)
+    fg[rng.integers(0, n, 4000)] = 20000.0
+    for name, sig in (("speech", speech), ("noise", 2000 * rng.standard_normal(n)),
+                      ("fg", fg)):
+        np.clip(sig, -32767, 32767).astype("<i2").tofile(os.path.join(d, f"{name}.pcm"))
+
+
+def phase_train(dev, smi, counted):
+    """Phase 6, the training path; returns its figures."""
+    import tempfile
+
+    import torch
+    from rnnoise_tpu_torch.api import RNNoise
+    from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
+    from rnnoise_tpu_torch.dsp import cuda_frame
+    from rnnoise_tpu_torch.tools import dump_features as dump_tool
+    from rnnoise_tpu_torch.training import model as tmodel
+    from rnnoise_tpu_torch.training.data import RNNoiseDataset
+    from rnnoise_tpu_torch.training.export import export_blob
+    from rnnoise_tpu_torch.training.train import make_optimizer, make_train_step
+
+    def count_launches(path):
+        for rec, fn in counted:
+            rec["launches_by_path"][path] = fn.launches
+            rec["launches"] += fn.launches
+        return {rec["name"]: fn.launches for rec, fn in counted}
+
+    figures = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_corpus(d, SEED + 6)
+        # the feature extraction alone, timed inside the tool's loop
+        extract, spans = dump_tool._sequence_features, []
+
+        def timed_extract(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = extract(*args)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t0)
+            return out
+        dump_tool._sequence_features = timed_extract
+        feats_path = os.path.join(d, "features.f32")
+        for _, fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            dump_tool.dump_features(*(os.path.join(d, f"{n}.pcm") for n in ("speech", "noise", "fg")),
+                                    feats_path, TRAIN_SEQS, batch=TRAIN_SEQS, seed=SEED,
+                                    seq_len=TRAIN_T, device=dev)
+        finally:
+            dump_tool._sequence_features = extract
+        dump_s = time.perf_counter() - t0
+        launches = count_launches("train_features")
+        check(launches["forward_spectral"] >= TRAIN_T,
+              f"feature extraction launched forward_spectral {launches['forward_spectral']} times")
+        check(all(v == 0 for k, v in launches.items() if k != "forward_spectral"),
+              f"feature extraction launched another kernel: {launches}")
+        data = np.fromfile(feats_path, dtype=np.float32).reshape(-1, 98)
+        check(data.shape[0] == TRAIN_SEQS * TRAIN_T, "feature records")
+        g_, v_ = data[:, 65:97], data[:, 97]
+        check(bool(np.isfinite(data[:, :65]).all()), "features not finite")
+        check(bool(((g_ == -1) | ((g_ >= 0) & (g_ <= 1 + 1e-6))).all()), "gain targets")
+        check(set(np.unique(v_)).issubset({0.0, 1.0}) and 0.05 < v_.mean() < 0.95,
+              "VAD targets")
+        check((g_ == -1).mean() < 0.9, "no real gain targets")
+        figures["features_s_per_100_frames"] = 100 * spans[0] / TRAIN_T
+        log(f"[train] dump_features {TRAIN_SEQS} x {TRAIN_T} frames (S={TRAIN_SEQS}): "
+            f"{dump_s:.2f} s in all, feature extraction {spans[0]:.2f} s = "
+            f"{figures['features_s_per_100_frames']:.4f} s per 100 frames; forward_spectral "
+            f"launched {launches['forward_spectral']} times; VAD share {v_.mean():.3f}, "
+            f"don't-care share {(g_ == -1).mean():.3f}")
+
+        ds = RNNoiseDataset(feats_path, TRAIN_T)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in ds.batch(np.arange(TRAIN_SEQS)))
+    # full width: the reference's defaults (cond 128, GRU 384)
+    params = tmodel.init_params(torch.Generator().manual_seed(SEED), device=dev)
+    opt, sched = make_optimizer(params)
+    step_fn = make_train_step(opt, sched, sparse=True)
+    N = params["gru1"]["w_rec"].shape[0]
+    states = tuple(torch.zeros(TRAIN_SEQS, N, device=dev) for _ in range(3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s, losses = [], []
+    for step in range(TRAIN_FROM, TRAIN_FROM + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        states, metrics = step_fn(params, states, batch, step)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    med = float(np.median(step_s))
+    figures.update(train_step_ms=1e3 * med, train_frames_per_s=TRAIN_SEQS * TRAIN_T / med,
+                   train_peak_bytes=peak)
+    log(f"[train] {TRAIN_STEPS} sparse steps from {TRAIN_FROM}, B={TRAIN_SEQS} T={TRAIN_T} "
+        f"cond {params['conv1']['b'].shape[0]} GRU {N}: "
+        + ", ".join(f"{1e3 * t:.1f}" for t in step_s)
+        + f" ms (median {1e3 * med:.1f} ms, {figures['train_frames_per_s']:.1f} frames/s), "
+        f"losses {', '.join(f'{v:.5f}' for v in losses)}, peak device memory "
+        f"{peak / 2**30:.3f} GiB on {smi}")
+
+    # one step on the card and one on the CPU, same params and batch
+    step_losses, grads = [], []
+    host = tmodel.params_to_numpy(params)
+    for where in (dev, torch.device("cpu")):
+        p = tmodel.params_from_numpy(host, where)
+        o, sc = make_optimizer(p)
+        b = tuple(t[:CHECK_B, :CHECK_T].to(where) for t in batch)
+        st = tuple(torch.zeros(CHECK_B, N, device=where) for _ in range(3))
+        _, m = make_train_step(o, sc)(p, st, b, 0)
+        step_losses.append(float(m["loss"]))
+        grads.append([t.grad.cpu() for t in tmodel.param_leaves(p)])
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(*grads))
+    log(f"[train] one step B={CHECK_B} T={CHECK_T}, card against CPU: loss "
+        f"{step_losses[0]:.7f} / {step_losses[1]:.7f}, largest gradient "
+        f"error / the leaf's max {worst:.3e} (tolerance 1e-4)")
+    check(worst <= 1e-4, "the card's gradients disagree with the CPU's")
+    figures["grad_err_vs_cpu"] = worst
+
+    # the trained model, exported and served on the default configuration
+    model = RNNoise.from_buffer(export_blob(params, quantize=True), device=dev)
+    check(model.config.gru_size == N, "exported topology")
+    pcm = signals(64, 20, dev, SEED + 7, quiet=range(0, 64, 8))
+    st0 = init_state(64, model.config, dev)
+    torch.cuda.synchronize()
+    for _, fn in counted:
+        fn.launches = 0
+    st, out, vad = process_frames_tm_i16(model.params, st0, pcm)
+    torch.cuda.synchronize()
+    launches = count_launches("train_serve")
+    check(launches["process_chunk_monokernel"] == 1
+          and sum(launches.values()) == 1, f"serving the trained model launched {launches}")
+    check(tuple(out.shape) == (20, 64, 480) and out.dtype == torch.int16
+          and bool(torch.isfinite(vad).all()), "served output")
+    check(all(bool(torch.isfinite(u.float()).all()) for t in st
+              for u in (t if isinstance(t, tuple) else (t,))), "served state not finite")
+    _, p_out, p_vad = cuda_frame.process_chunk_monokernel_plain(model.params, st0, pcm)
+    pcm_err = int((out.int() - p_out.int()).abs().max())
+    vad_err = float((vad - p_vad).abs().max())
+    log(f"[train] the trained model served (S=64, T=20, default configuration): one "
+        f"monokernel launch, PCM {pcm_err} LSB (<= 4) and VAD {vad_err:.2e} (<= 2e-3) "
+        f"against its plain version, VAD mean {float(vad.mean()):.3f}")
+    check(pcm_err <= 4 and vad_err <= 2e-3, "the served trained model leaves the parity budget")
+    return figures
 
 
 def main():
@@ -638,6 +816,12 @@ def main():
             + f"): {streams[path]:.1f} realtime streams on {smi}")
     log(f"[timing] most realtime streams: {max(streams, key=streams.get)}; "
         f"default configuration: {default}")
+
+    # 6. the training path -----------------------------------------------------
+    t0 = time.perf_counter()
+    train = phase_train(dev, smi, counted)
+    log(f"[train] phase 6 took {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(train))
 
     print(json.dumps({"kernels": [rec for rec, _ in counted]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,7 +74,9 @@ class RuntimeConfig:
       counterpart of ``denoise.set_monokernel``; it overrides the three
       switches above.  It has the default numerics, the ratio ranking and
       the "f64" HP rounding only, and raises on CUDA tensors otherwise.
-      The float entry points run the fused configuration.
+      Without a model or with a float-only one (no int8 weights) the chunk
+      runs the fused configuration, as the JAX package falls back; so do
+      the float entry points.
 
     The fields' defaults are the fused configuration.  ``DEFAULT_RUNTIME``,
     which the entry points take when given none, is the configuration that

@@ -22,6 +22,7 @@ kernels against them.  Everything else is plain PyTorch on either device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -34,7 +35,8 @@ from .config import (DEFAULT_MODEL, DEFAULT_RUNTIME, FRAME_SIZE, FREQ_SIZE,
 from .dsp import biquad as biquad_mod
 from .dsp import cuda_analysis, cuda_spectral
 from .dsp import pitch as pitch_mod
-from .dsp.transform import compute_band_corr, compute_band_energy, dct
+from .dsp.transform import (compute_band_corr, compute_band_energy, dct,
+                            windowed_forward_transform)
 from .models.rnn import ModelParams, RNNState, compute_rnn, init_rnn_state
 
 
@@ -119,6 +121,13 @@ def _log_energy_follower(Ex: torch.Tensor) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def _lowpass(X: torch.Tensor, lowpass_bin: torch.Tensor) -> torch.Tensor:
+    """X [S, 962] re|im with the bins at and above lowpass_bin [S] zeroed."""
+    bins = torch.arange(FREQ_SIZE, device=X.device).repeat(2)
+    return torch.where(bins[None, :] < lowpass_bin[:, None], X,
+                       torch.zeros_like(X))
+
+
 def compute_frame_features(state: DenoiseState, x: torch.Tensor,
                            rt: RuntimeConfig = DEFAULT_RUNTIME,
                            plain: bool = False, training: bool = False,
@@ -157,9 +166,7 @@ def compute_frame_features(state: DenoiseState, x: torch.Tensor,
                    else cuda_spectral.forward_spectral)
         X, P = forward(state.analysis_mem, x, pitch_buf, start)
         if lowpass_bin is not None:
-            bins = torch.arange(FREQ_SIZE, device=X.device).repeat(2)
-            X = torch.where(bins[None, :] < lowpass_bin[:, None], X,
-                            torch.zeros_like(X))
+            X = _lowpass(X, lowpass_bin)
     Ex = compute_band_energy(X)
     Ep = compute_band_energy(P)
     Exp = compute_band_corr(X, P) / torch.sqrt(0.001 + Ex * Ep)
@@ -181,6 +188,22 @@ def compute_frame_features(state: DenoiseState, x: torch.Tensor,
     new_state = state._replace(analysis_mem=x, pitch_buf=pitch_buf,
                                last_period=T0, last_gain=gain)
     return new_state, FrameFeatures(X, P, Ex, Ep, Exp, features, silence)
+
+
+def _frame_analysis(analysis_mem: torch.Tensor, x: torch.Tensor,
+                    lowpass_bin: Optional[torch.Tensor] = None):
+    """The analysis alone (the reference's rnn_frame_analysis): the
+    windowed forward spectrum of [analysis_mem | x] and its band energies,
+    with the bins at and above ``lowpass_bin`` [S] zeroed when given.
+    Returns (new analysis_mem, X [S, 962] re|im, Ex [S, 32]).
+
+    X is the f64 transform of ``forward_spectral_plain`` rounded once, on
+    either device: training's clean path has no pitch window, so a launch
+    of the forward kernel would compute a second spectrum to discard."""
+    X = windowed_forward_transform(torch.cat([analysis_mem, x], dim=-1))
+    if lowpass_bin is not None:
+        X = _lowpass(X, lowpass_bin)
+    return x, X, compute_band_energy(X)
 
 
 def process_frame(params: Optional[ModelParams], state: DenoiseState,
@@ -265,7 +288,13 @@ def process_frames_tm_i16(params: Optional[ModelParams], state: DenoiseState,
     out int16, vad).  Rounding is the native ring's float path: half away
     from zero, clipped to int16 (streamio.cc Ring::push_f32).  With
     ``rt.monokernel`` the chunk is one launch of the whole-chunk kernel
-    (its plain version on CPU tensors or with ``plain``)."""
+    (its plain version on CPU tensors or with ``plain``).  That kernel runs
+    an int8 network, so without a model (``params=None``, unity gains) or
+    with a float-only one the chunk runs the frame loop of ``rt``'s fused
+    configuration instead, with its kernels, as the JAX package falls back
+    from its monokernel (its ``_monokernel_viable``)."""
+    if rt.monokernel and (params is None or params.conv2.weights_q is None):
+        rt = dataclasses.replace(rt, monokernel=False)
     if rt.monokernel:
         from .dsp import cuda_frame
         run = (cuda_frame.process_chunk_monokernel_plain if plain

@@ -16,14 +16,16 @@ import pytest
 import torch
 
 from rnnoise_tpu_torch import kernels
-from rnnoise_tpu_torch.config import CONFIGURATIONS, resolve_device
+from rnnoise_tpu_torch.api import RNNoise
+from rnnoise_tpu_torch.config import CONFIGURATIONS, DEFAULT_RUNTIME, resolve_device
 from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
 from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_xcorr
 from rnnoise_tpu_torch.dsp import cuda_spectral as spec
 from rnnoise_tpu_torch.dsp import pitch
 from rnnoise_tpu_torch.dsp.transform import compute_band_corr, compute_band_energy
-from rnnoise_tpu_torch.models.rnn import RNNState
+from rnnoise_tpu_torch.models.rnn import ModelParams, RNNState
 from rnnoise_tpu_torch.nn import cuda_rnn
+from rnnoise_tpu_torch.runtime.engine import StreamingEngine
 from rnnoise_tpu_torch.weights.loader import load_model_file
 
 pytestmark = pytest.mark.cuda
@@ -383,3 +385,33 @@ def test_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError):
         spec.inverse_spectral(torch.zeros(3, 900, device=dev))
     assert shutil.which("nvidia-smi") is not None
+
+
+@pytest.mark.parametrize("model", ["none", "float-only"])
+def test_engine_without_int8_model_ticks_on_the_default_runtime(dev, model):
+    """StreamingEngine on the default (mono) runtime without a model, or
+    with a float-only one, ticks on the card through the fused
+    configuration's kernels (the monokernel runs an int8 network), and its
+    output equals an engine's on the fused configuration bit for bit."""
+    rn = None
+    if model == "float-only":
+        params = load_model_file(MODEL_BLOB, device=dev)
+        rn = RNNoise(ModelParams(*(lp._replace(weights_q=None, scale=None)
+                                   for lp in params)), device=dev)
+    S, T = 16, 8
+    pcm = _signal(np.random.default_rng(2), S, 3 * T)
+    outs = {}
+    for name, rt in (("default", DEFAULT_RUNTIME), ("fused", CONFIGURATIONS["fused"])):
+        eng = StreamingEngine(S, rn, chunk_frames=T, runtime=rt, device=dev)
+        slots = [eng.attach() for _ in range(S)]
+        for s in slots:
+            eng.push(s, pcm[:, s].reshape(-1))
+        mono, analysis = (cuda_frame.process_chunk_monokernel.launches,
+                          cuda_analysis.analysis_spectral.launches)
+        assert [eng.tick() for _ in range(3)] == [S] * 3
+        assert cuda_frame.process_chunk_monokernel.launches == mono
+        assert cuda_analysis.analysis_spectral.launches == analysis + 3 * T
+        outs[name] = np.stack([eng.pull(s, 3 * T * 480) for s in slots])
+    assert outs["default"].shape == (S, 3 * T * 480)
+    assert np.abs(outs["default"]).max() > 0
+    np.testing.assert_array_equal(outs["default"], outs["fused"])

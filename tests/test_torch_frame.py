@@ -1,8 +1,10 @@
 """The whole-chunk kernel's plain version (dsp/cuda_frame.py) against
 rnnoise_tpu.denoise.process_frames (the scan path on CPU) over 150 stateful
-frames, its dispatch from process_frames_tm_i16, and the configurations the
-kernel refuses on CUDA tensors."""
+frames, its dispatch from process_frames_tm_i16, the fused route it takes
+without an int8 model, and the configurations the kernel refuses on CUDA
+tensors."""
 
+import collections
 import dataclasses
 
 import jax
@@ -15,7 +17,7 @@ from rnnoise_tpu import denoise as jd
 from rnnoise_tpu.weights.loader import load_model_file as jload
 from rnnoise_tpu_torch import denoise as td
 from rnnoise_tpu_torch.config import CONFIGURATIONS
-from rnnoise_tpu_torch.dsp import cuda_frame
+from rnnoise_tpu_torch.dsp import cuda_analysis, cuda_frame, cuda_spectral
 from rnnoise_tpu_torch.weights.loader import params_from_numpy
 from tests.torch_helpers import (MODEL_BLOB, OnCuda, make_signal,  # noqa: F401
                                  no_jax_compile_cache, xla_cpu_hp_state)
@@ -107,3 +109,43 @@ def test_monokernel_refuses_what_it_does_not_compute(models, change, what):
     with pytest.raises(ValueError, match="params"):
         cuda_frame.process_chunk_monokernel(None, td.init_state(3, device="cpu"),
                                             pcm, MONO)
+
+
+@pytest.mark.parametrize("model", ["none", "float-only"])
+def test_default_runtime_without_int8_model_runs_fused_kernels(models, model,
+                                                               monkeypatch):
+    """Under the default (mono) runtime a chunk on a CUDA tensor without a
+    model, or with a float-only one (no int8 weights, which the monokernel
+    needs), runs the fused configuration's frame loop with its kernels, as
+    the JAX package falls back from its monokernel: no ValueError, no
+    monokernel launch, the analysis and post-filter kernel wrappers called
+    once a frame (stand-ins here that record the call and run the plain
+    version), and the result equal to the fused configuration's plain
+    path."""
+    _, tp = models
+    params = None if model == "none" else type(tp)(
+        *(lp._replace(weights_q=None, scale=None) for lp in tp))
+    calls = collections.Counter()
+
+    def recording(name, plain):
+        def wrapper(*args):
+            calls[name] += 1
+            return plain(*args)
+        return wrapper
+    monkeypatch.setattr(cuda_analysis, "analysis_spectral", recording(
+        "analysis", cuda_analysis.analysis_spectral_plain))
+    monkeypatch.setattr(cuda_spectral, "postfilter_synthesis", recording(
+        "postfilter", cuda_spectral.postfilter_synthesis_plain))
+    T, S = 6, 3
+    pcm = torch.from_numpy(_pcm(5, S, T).transpose(1, 0, 2).copy())
+    before = cuda_frame.process_chunk_monokernel.launches
+    got = td.process_frames_tm_i16(params, td.init_state(S, device="cpu"),
+                                   pcm.as_subclass(OnCuda))
+    assert cuda_frame.process_chunk_monokernel.launches == before
+    assert calls == {"analysis": T, "postfilter": T}
+    want = td.process_frames_tm_i16(params, td.init_state(S, device="cpu"), pcm,
+                                    CONFIGURATIONS["fused"], plain=True)
+    for a, b in zip(cuda_frame._leaves(got[0]), cuda_frame._leaves(want[0])):
+        assert torch.equal(a, b)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert got[1].abs().max() > 0
