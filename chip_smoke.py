@@ -43,6 +43,28 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              int8 blob, loaded and served by process_frames_tm_i16 on the
              default configuration (S=64, T=20): one monokernel launch,
              held to the parity budget against its plain version.
+7. serving rest — (a) FanoutEngine (2 workers) against StreamingEngine on
+             phase 4's audio, plain and pipelined, a detach and re-attach
+             included, bit for bit; then the tick at S=1024, T=8 on the
+             registered model: StreamingEngine and FanoutEngine with K = 1,
+             2 and 4 workers, plain and pipelined, the median of 20 ticks
+             after 3 of warm-up, and each engine's tick split into its
+             stages (assemble, host to device, device, device to host,
+             commit; plain, the card synchronised after each), with the
+             realtime streams a tick sustains and the host's cores; (b) the
+             registry's model equals the file's; (c) the demo command line
+             in a subprocess on 2 s of PCM equals StreamDenoiser on the
+             card; (d) the C ABI (the port's shim and native/capi_demo.c)
+             on 20 frames equals StreamDenoiser on the card up to the
+             client's int16 rounding (left out, and logged so, only where
+             this interpreter's headers or libpython are missing); (e) the
+             sharded processors over every card and over [cuda:0, cuda:0]
+             at S=1024, T=20: int16 bit for bit against the unsharded
+             monokernel with one launch a shard, float within the parity
+             budget; (f) the data-parallel train step at world size 1 on
+             NCCL against the step without a group; (g) a saved and loaded
+             state continues bit for bit, and checked_process_frames passes
+             clean input and raises on a planted NaN.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Without a CUDA device it exits 1 and prints no result.
@@ -110,6 +132,13 @@ SEED = 1234
 TRAIN_SEQS, TRAIN_T = 128, 2000      # phase 6: the reference's batch and length
 TRAIN_STEPS, TRAIN_FROM = 3, 6000    # sparse steps, from the sparsifier's start
 CHECK_B, CHECK_T = 4, 200            # phase 6's card-against-CPU step
+FANOUT_S, FANOUT_T = 1024, 8         # phase 7's tick: the engine's default T
+FANOUT_K = (1, 2, 4)                 # fan-out worker processes
+FANOUT_TICKS, FANOUT_WARMUP = 20, 3
+FANOUT_RING = 32                     # ring frames a slot (4 ticks)
+TICK_STAGES = ("assemble", "to_device", "device", "to_host", "commit")
+CAPI_FRAMES = 20
+SUBPROCESS_TIMEOUT_S = 300
 
 
 def log(*a):
@@ -347,6 +376,354 @@ def phase_train(dev, smi, counted):
         f"monokernel launch, PCM {pcm_err} LSB (<= 4) and VAD {vad_err:.2e} (<= 2e-3) "
         f"against its plain version, VAD mean {float(vad.mean()):.3f}")
     check(pcm_err <= 4 and vad_err <= 2e-3, "the served trained model leaves the parity budget")
+    return figures
+
+
+def same_tensors(a, b):
+    """Two tensors, or tuples of them (nested, with Nones), equal bit for
+    bit."""
+    import torch
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_tensors(x, y) for x, y in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return bool(torch.equal(a, b))
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def drive_bulk(eng, sigs, T, n_chunks):
+    """Attach every slot, tick n_chunks chunks, detach and re-attach slot 5,
+    tick one more; returns (streams advanced per tick, every slot's
+    output)."""
+    S = sigs.shape[0]
+    attach = getattr(eng, "attach_all", None) or (
+        lambda: sum(eng.attach() >= 0 for _ in range(S)))
+    check(attach() == S, "attach")
+    eng.pool.push_all(sigs[:, :n_chunks * T * 480])
+    adv = [eng.tick() for _ in range(n_chunks)] + [eng.flush()]
+    eng.detach(5)
+    check(attach() == 1, "re-attach")
+    eng.pool.push_all(sigs[:, n_chunks * T * 480:(n_chunks + 1) * T * 480])
+    adv += [eng.tick(), eng.flush()]
+    out, _ = eng.pool.pull_all((n_chunks + 1) * T * 480)
+    return adv, out
+
+
+def time_ticks(eng, block, n, stages=False):
+    """Seconds of each of ``n`` ticks after FANOUT_WARMUP, the pool fed one
+    chunk of ``block`` [S, T*480] before each tick and its output rings
+    drained after (neither timed; in pipelined mode the card works on
+    meanwhile).  With ``stages`` the tick runs stage by stage (plain mode),
+    the card synchronised after each, and each stage's seconds are returned
+    too."""
+    T = eng.chunk_frames
+    dev = eng.device
+    drain = np.empty((eng.n_slots, T * 480), np.int16)
+    ticks, parts = [], {k: [] for k in TICK_STAGES}
+    for i in range(FANOUT_WARMUP + n):
+        eng.pool.push_all(block)
+        t0 = time.perf_counter()
+        if not stages:
+            eng.tick()
+            t = [time.perf_counter()]
+        else:
+            batch, counts, reset = eng._assemble(T)
+            t = [time.perf_counter()]
+            args = eng._to_device(batch, counts, reset)
+            sync(dev)
+            t.append(time.perf_counter())
+            out = eng._compute(*args)
+            sync(dev)
+            t.append(time.perf_counter())
+            host = eng._to_host(out)
+            t.append(time.perf_counter())
+            eng._commit(T, host, counts)
+            t.append(time.perf_counter())
+        eng.pool.pull_all(T * 480, out=drain)
+        if i >= FANOUT_WARMUP:
+            ticks.append(t[-1] - t0)
+            for k, a, b in zip(TICK_STAGES, [t0] + t[:-1], t):
+                parts[k].append(b - a)
+    eng.flush()
+    eng.pool.pull_all(T * 480, out=drain)
+    return ticks, (parts if stages else None)
+
+
+def phase_serving_rest(dev, smi, counted, model, audio):
+    """Phase 7: the fan-out engine (checked, then timed), the registry, the
+    demo, the C ABI, the sharded processors, the data-parallel train step
+    and the utils, on the card; returns the tick figures."""
+    import io
+    import shutil
+    import uuid
+
+    import torch
+    import torch.distributed as dist
+    from rnnoise_tpu_torch import capi, kernels
+    from rnnoise_tpu_torch.api import RNNoise, StreamDenoiser
+    from rnnoise_tpu_torch.config import ModelConfig
+    from rnnoise_tpu_torch.denoise import (init_state, process_frames,
+                                           process_frames_tm_i16)
+    from rnnoise_tpu_torch.parallel import multihost, sharding
+    from rnnoise_tpu_torch.runtime.engine import StreamingEngine
+    from rnnoise_tpu_torch.runtime.fanout import FanoutEngine
+    from rnnoise_tpu_torch.training.model import init_params, param_leaves
+    from rnnoise_tpu_torch.training.train import make_optimizer, make_train_step
+    from rnnoise_tpu_torch.utils import debug, state_io
+    from rnnoise_tpu_torch.weights.registry import load_registered
+
+    def count_launches(path):
+        for rec, fn in counted:
+            rec["launches_by_path"][path] = fn.launches
+            rec["launches"] += fn.launches
+        return {rec["name"]: fn.launches for rec, fn in counted}
+
+    def zero_counts():
+        for _, fn in counted:
+            fn.launches = 0
+
+    figures = {}
+    procs = []
+    tmp = os.path.join(kernels.BUILD_DIR, f"phase7-{os.getpid()}-{uuid.uuid4().hex}")
+    os.makedirs(tmp)
+    try:
+        # (a) the fan-out engine against the single-process engine
+        sigs = audio.astype(np.int16)
+        for pipelined in (False, True):
+            ref = StreamingEngine(16, model, chunk_frames=8, pipelined=pipelined)
+            ref_adv, ref_out = drive_bulk(ref, sigs, 8, 3)
+            zero_counts()
+            eng = FanoutEngine(16, model, chunk_frames=8, n_workers=2,
+                               pipelined=pipelined)
+            try:
+                adv, out = drive_bulk(eng, sigs, 8, 3)
+            finally:
+                eng.close()
+            launches = count_launches("fanout" if not pipelined else "fanout_pipelined")
+            check(launches["process_chunk_monokernel"] == 4
+                  and sum(launches.values()) == 4,
+                  f"the fan-out engine launched {launches}")
+            check(adv == ref_adv and sum(adv) == 3 * 16 + 16,
+                  f"fan-out advanced {adv}, the engine {ref_adv}")
+            check(np.array_equal(out, ref_out) and np.abs(out).max() > 0,
+                  "the fan-out engine's output differs from the engine's")
+            log(f"[fanout] pipelined={pipelined}: 2 workers, advanced {adv}, "
+                f"output equal to StreamingEngine's bit for bit, monokernel launches "
+                f"{launches['process_chunk_monokernel']}")
+
+        # (a) the tick at full width on the registered model
+        full = RNNoise(load_registered(device=dev), device=dev)
+        block = signals(FANOUT_S, FANOUT_T, dev, SEED + 9, quiet=range(0, FANOUT_S, 16))
+        block = block.transpose(0, 1).reshape(FANOUT_S, -1).cpu().numpy()
+        cores = os.cpu_count()
+        usable = len(os.sched_getaffinity(0))
+        rows = {}
+        for name, K in (("engine", 0),) + tuple((f"fanout K={k}", k) for k in FANOUT_K):
+            for pipelined in (False, True):
+                if K == 0:
+                    eng = StreamingEngine(FANOUT_S, full, chunk_frames=FANOUT_T,
+                                          ring_frames=FANOUT_RING, pipelined=pipelined)
+                    for _ in range(FANOUT_S):
+                        eng.attach()
+                else:
+                    eng = FanoutEngine(FANOUT_S, full, chunk_frames=FANOUT_T, n_workers=K,
+                                       ring_frames=FANOUT_RING, pipelined=pipelined)
+                    eng.attach_all()
+                try:
+                    ticks, _ = time_ticks(eng, block, FANOUT_TICKS)
+                    if not pipelined:
+                        _, parts = time_ticks(eng, block, FANOUT_TICKS, stages=True)
+                finally:
+                    if K:
+                        eng.close()
+                med = float(np.median(ticks))
+                row = dict(tick_ms=1e3 * med, streams=FANOUT_S * FANOUT_T * 0.01 / med,
+                           min_ms=1e3 * min(ticks), max_ms=1e3 * max(ticks))
+                if not pipelined:
+                    row["stages_ms"] = {k: 1e3 * float(np.median(v)) for k, v in parts.items()}
+                rows[f"{name} {'pipelined' if pipelined else 'plain'}"] = row
+                log(f"[fanout] S={FANOUT_S} T={FANOUT_T} {name}, "
+                    f"{'pipelined' if pipelined else 'plain'}: median tick {1e3 * med:.3f} ms "
+                    f"of {len(ticks)} (min {row['min_ms']:.3f}, max {row['max_ms']:.3f}): "
+                    f"{row['streams']:.1f} realtime streams"
+                    + ("" if pipelined else "; stages (median ms) " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in row["stages_ms"].items()))
+                    + f"; host {cores} cores ({usable} usable) on {smi}")
+        figures["tick"] = dict(S=FANOUT_S, T=FANOUT_T, cores=cores, usable_cores=usable,
+                               rows=rows)
+
+        # (c, d) the demo and the C ABI run in processes of their own while
+        # (b), (e), (f) and (g) go on here; they are read at the end
+        rng = np.random.default_rng(SEED + 8)
+        demo_pcm = signals(1, 200, torch.device("cpu"), SEED + 8).reshape(-1).numpy()
+        demo_pcm.tofile(os.path.join(tmp, "in.pcm"))
+        procs.append(("demo", subprocess.Popen(
+            [sys.executable, "-m", "rnnoise_tpu_torch.tools.demo",
+             os.path.join(tmp, "in.pcm"), os.path.join(tmp, "out.pcm")],
+            cwd=REPO, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+        capi_pcm = (2500 * rng.standard_normal(480 * CAPI_FRAMES)).astype(np.int16)
+        try:
+            capi.python_embedding()
+        except RuntimeError as e:
+            capi_missing = str(e)
+        else:
+            capi_missing = None
+            demo_exe = capi.build_demo(capi.build_capi(os.path.join(tmp, "capi")))
+            capi_pcm.tofile(os.path.join(tmp, "capi_in.pcm"))
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("PYTHONPATH", "RNNOISE_TPU_DEVICE")}
+            with open(os.path.join(tmp, "capi_in.pcm"), "rb") as stdin:
+                procs.append(("capi", subprocess.Popen(
+                    [demo_exe, MODEL], stdin=stdin, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, env=env)))
+
+        # (b) the registry
+        registered = load_registered("rnnoise_synth_v1.blob", device=dev)
+        check(same_tensors(registered, RNNoise.from_filename(MODEL, device=dev).params),
+              "the registered model differs from the file's")
+        log("[registry] load_registered('rnnoise_synth_v1.blob') equals "
+            "RNNoise.from_filename(MODEL): sha256 pin accepted")
+
+        # (e) the sharded processors, over every card and over [cuda:0, cuda:0]
+        pcm = signals(S_MAIN, T_MONO, dev, SEED + 10, quiet=range(0, S_MAIN, 16))
+        st0 = init_state(S_MAIN, model.config, dev)
+        _, u_out, u_vad = process_frames_tm_i16(model.params, st0, pcm)
+        _, uf_out, uf_vad = process_frames(model.params, st0,
+                                           pcm.transpose(0, 1).float())
+        for label, mesh in (("every card", sharding.make_mesh()),
+                            ("cuda:0 twice", sharding.make_mesh(devices=[dev, dev]))):
+            run = sharding.make_sharded_processor_tm_i16(model.params, mesh)
+            sync(dev)
+            zero_counts()
+            _, s_out, s_vad = run(st0, pcm)
+            sync(dev)
+            launches = count_launches(f"shard_i16 ({label})")
+            check(launches["process_chunk_monokernel"] == len(mesh)
+                  and sum(launches.values()) == len(mesh),
+                  f"the sharded int16 processor launched {launches} over {len(mesh)} shards")
+            check(torch.equal(s_out, u_out) and torch.equal(s_vad, u_vad),
+                  f"sharded ({label}) int16 output differs from the unsharded monokernel's")
+            runf = sharding.make_sharded_processor(model.params, mesh)
+            zero_counts()
+            _, sf_out, sf_vad = runf(st0, pcm.transpose(0, 1).float())
+            sync(dev)
+            launches_f = count_launches(f"shard_float ({label})")
+            pcm_err = float((sf_out - uf_out).abs().max())
+            vad_err = float((sf_vad - uf_vad).abs().max())
+            check(pcm_err <= 4 and vad_err <= 2e-3,
+                  f"sharded ({label}) float output leaves the parity budget")
+            log(f"[shard] {label} ({len(mesh)} shards), S={S_MAIN} T={T_MONO}: int16 equal to "
+                f"the unsharded monokernel bit for bit, {launches['process_chunk_monokernel']} "
+                f"monokernel launches; float: PCM {pcm_err:.3g} (<= 4), VAD {vad_err:.3g} "
+                f"(<= 2e-3), launches {launches_f}")
+
+        # (f) the data-parallel train step, world size 1 on NCCL
+        cfg = ModelConfig(cond_size=32, gru_size=64)
+        brng = np.random.default_rng(SEED + 11)
+        batch = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            brng.normal(0, 1.5, (8, 24, 65)), brng.uniform(0, 1, (8, 24, 32)),
+            brng.uniform(0, 1, (8, 24, 1))))
+        rdv = os.path.join(tmp, "nccl-rendezvous")
+        multihost.init_distributed(f"file://{rdv}", 1, 0, "nccl")
+        results = []
+        try:
+            for group in (None, dist.group.WORLD):
+                tp = init_params(torch.Generator().manual_seed(SEED), cfg, dev)
+                opt, sched = make_optimizer(tp)
+                states = tuple(torch.zeros(8, 64, device=dev) for _ in range(3))
+                _, m = make_train_step(opt, sched, process_group=group)(tp, states, batch, 0)
+                results.append((float(m["loss"]), [t.detach() for t in param_leaves(tp)]))
+        finally:
+            dist.destroy_process_group()
+        dp_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                     for a, b in zip(results[0][1], results[1][1]))
+        log(f"[dp] train step cond 32 GRU 64 B=8 T=24 with an NCCL group of 1 against "
+            f"none: loss {results[1][0]:.7f} / {results[0][0]:.7f}, largest param "
+            f"difference / the leaf's max {dp_err:.3e} (<= 1e-6)")
+        check(dp_err <= 1e-6, "the data-parallel step differs from the plain step")
+
+        # (g) utils: a state file continues bit for bit; the NaN check
+        st1, _, _ = process_frames_tm_i16(model.params, st0, pcm[:10])
+        buf = io.BytesIO()
+        state_io.save_state(st1, buf)
+        buf.seek(0)
+        loaded = state_io.load_state(buf, dev)
+        a = process_frames_tm_i16(model.params, st1, pcm[10:])
+        b = process_frames_tm_i16(model.params, loaded, pcm[10:])
+        check(same_tensors(st1, loaded) and same_tensors(a, b),
+              "a loaded state does not continue bit for bit")
+        small = pcm[:4, :64].transpose(0, 1).float().contiguous()
+        clean0 = init_state(small.shape[0], model.config, dev)
+        got = debug.checked_process_frames(model.params, clean0, small)
+        want = process_frames(model.params, clean0, small)
+        check(same_tensors(got, want), "checked_process_frames differs from process_frames")
+        bad = clean0._replace(analysis_mem=clean0.analysis_mem.clone())
+        bad.analysis_mem[small.shape[0] // 2, 100] = float("nan")
+        try:
+            debug.checked_process_frames(model.params, bad, small)
+        except FloatingPointError as e:
+            nan_msg = str(e)
+        else:
+            raise Failure("checked_process_frames passed a planted NaN")
+        log(f"[utils] save_state/load_state: continued bit for bit; checked_process_frames: "
+            f"clean input equal to process_frames, planted NaN raised '{nan_msg}'")
+
+        # (c) the demo's output, against the port's API on the card
+        name, proc = procs[0]
+        log_demo, _ = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+        check(proc.returncode == 0, f"the demo exited with {proc.returncode}:\n{log_demo[-3000:]}")
+        got = np.fromfile(os.path.join(tmp, "out.pcm"), dtype="<i2")
+        den = StreamDenoiser(1, RNNoise.from_filename(MODEL, device=dev))
+        frames = demo_pcm.astype(np.float32).reshape(-1, 480)
+        want = np.concatenate([den.process_chunk(frames[None, i:i + 16])[0].ravel()
+                               for i in range(0, len(frames), 16)])
+        want = np.clip(np.round(want[480:]), -32768, 32767).astype("<i2")
+        check(len(got) == len(demo_pcm) - 480 and np.array_equal(got, want),
+              "the demo's output differs from StreamDenoiser's on the card")
+        log(f"[demo] python -m rnnoise_tpu_torch.tools.demo on {len(demo_pcm)} samples "
+            f"(device cuda): {len(got)} out, equal to StreamDenoiser on the card bit for "
+            f"bit ({log_demo.strip().splitlines()[-1]})")
+
+        # (d) the C ABI on the card
+        if capi_missing is not None:
+            log(f"[capi] left out: {capi_missing}")
+            figures["capi"] = f"left out: {capi_missing}"
+        else:
+            _, proc = procs[1]
+            out_c, err_c = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+            err_c = err_c.decode()
+            check(proc.returncode == 0, f"capi_demo exited with {proc.returncode}:\n"
+                                        f"{err_c[-3000:]}")
+            out_c = np.frombuffer(out_c, np.int16)
+            vads_c = [float(x.split()[1]) for x in err_c.splitlines() if x.startswith("vad ")]
+            den = StreamDenoiser(1, RNNoise.from_filename(MODEL, device=dev))
+            outs, vads = [], []
+            for f in range(CAPI_FRAMES):
+                o, v = den.process_frame(capi_pcm[f * 480:(f + 1) * 480].astype(np.float32)[None])
+                outs.append(o[0])
+                vads.append(float(v[0]))
+            out_py = np.clip(np.round(np.concatenate(outs)), -32768, 32767)
+            check(len(out_c) == 480 * CAPI_FRAMES and len(vads_c) == CAPI_FRAMES,
+                  "capi_demo's output length")
+            pcm_err = float(np.abs(out_c - out_py).max())
+            vad_err = float(np.abs(np.asarray(vads_c) - np.asarray(vads)).max())
+            log(f"[capi] the port's shim and native/capi_demo.c, {CAPI_FRAMES} frames on the "
+                f"card (RNNOISE_TPU_DEVICE unset): PCM {pcm_err:.0f} LSB (<= 1, the client's "
+                f"rounding), VAD {vad_err:.2e} (<= 1e-5)")
+            check(pcm_err <= 1 and vad_err <= 1e-5, "the C ABI differs from StreamDenoiser")
+            figures["capi"] = dict(pcm_err=pcm_err, vad_err=vad_err)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return figures
 
 
@@ -822,6 +1199,12 @@ def main():
     train = phase_train(dev, smi, counted)
     log(f"[train] phase 6 took {time.perf_counter() - t0:.1f} s: "
         + json.dumps(train))
+
+    # 7. the rest of serving, sharding, the data-parallel step, utils -------
+    t0 = time.perf_counter()
+    serving = phase_serving_rest(dev, smi, counted, model, audio)
+    log(f"[serving] phase 7 took {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(serving))
 
     print(json.dumps({"kernels": [rec for rec, _ in counted]}), flush=True)
     print(json.dumps({"ok": True, "device": {

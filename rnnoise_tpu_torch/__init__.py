@@ -1,8 +1,9 @@
 """rnnoise_tpu_torch — the stream-batched RNNoise denoiser in PyTorch and CUDA.
 
 The PyTorch/CUDA port of ``rnnoise_tpu``: the same batched streaming
-denoiser, weight-blob reader, serving engine and training stack
-(``training/``, ``tools/dump_features.py``), with hand-written CUDA kernels
+denoiser, weight-blob reader and model registry, serving engine and its
+multi-process fan-out, C ABI and demo, stream sharding across devices and
+training stack (``training/``, ``tools/``), with hand-written CUDA kernels
 (``csrc/``) carrying the frame.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 CPU tensors every kernel wrapper uses its plain PyTorch version.

@@ -1,6 +1,8 @@
 """Batched NN layers with the reference's exact numerics (gate order, dual
 bias, diagonal term, int8 activation quantisation) — the PyTorch counterpart
-of ``rnnoise_tpu/nn/layers.py``, limited to what the RNNoise graph runs.
+of ``rnnoise_tpu/nn/layers.py``: the layers the RNNoise graph runs, and the
+NN runtime's others (``lpcnet_exp2``, ``relu``, ``swish``, ``softmax``,
+``glu``, ``conv2d_step``), which it does not.
 
 Every product is computed so that its f32 result is the correctly rounded
 exact value: int8 x int8 dots are exact integers (accumulated in f64, which
@@ -62,6 +64,44 @@ def _sigmoid(x, approx):
     return sigmoid_approx(x) if approx else torch.sigmoid(x)
 
 
+def lpcnet_exp2(x: torch.Tensor) -> torch.Tensor:
+    """Bit-trick 2**x (reference lpcnet_exp2, src/vec.h:316-332): a cubic
+    polynomial on the fraction, the integer part added into the float's
+    exponent field with integer arithmetic; 0 below -50."""
+    integer = torch.floor(x)
+    frac = x - integer
+    poly = 0.99992522 + frac * (0.69583354
+                                + frac * (0.22606716 + 0.078024523 * frac))
+    bits = poly.float().view(torch.int32)
+    bits = (bits + (integer.to(torch.int32) << 23)) & 0x7FFFFFFF
+    return torch.where(integer < -50, torch.zeros_like(x),
+                       bits.view(torch.float32))
+
+
+def lpcnet_exp(x: torch.Tensor) -> torch.Tensor:
+    """e**x via lpcnet_exp2 (src/vec.h:333)."""
+    return lpcnet_exp2(x * 1.44269504)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """src/nnet_arch.h:72-75."""
+    return torch.clamp(x, min=0.0)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """vec_swish (src/nnet_arch.h:62-69): x * sigmoid_approx(x), the
+    approximate sigmoid even under HIGH_ACCURACY."""
+    return x * sigmoid_approx(x)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The exp-only softmax of compute_activation_c (src/nnet_arch.h:105-119
+    without SOFTMAX_HACK, which only nnet.c defines): lpcnet_exp, then the
+    reciprocal of the sum plus 1e-30."""
+    y = lpcnet_exp(x)
+    return y * (1.0 / (torch.sum(y, dim=dim, keepdim=True) + 1e-30))
+
+
 def quantize_activations(x: torch.Tensor) -> torch.Tensor:
     """s8 activation quantisation: (int)floor(.5 + 127 x)  (vec.h:253, 287)."""
     return torch.clamp(torch.floor(0.5 + 127.0 * x), -127.0, 127.0).to(torch.int8)
@@ -110,6 +150,37 @@ def conv1d_step(p: LinearParams, mem: torch.Tensor, x: torch.Tensor,
     tmp = torch.cat([mem, x], dim=-1)
     out = dense(p, tmp, activation, quantized, approx)
     return tmp[:, x.shape[-1]:], out
+
+
+def glu(p: LinearParams, x: torch.Tensor, quantized: bool) -> torch.Tensor:
+    """Gated linear unit (compute_glu, nnet.c:96-109): x * sigmoid(W x).
+    Unused by the RNNoise graph."""
+    return x * sigmoid_approx(linear(p, x, quantized))
+
+
+def conv2d_step(weights: torch.Tensor, bias: Optional[torch.Tensor],
+                mem: torch.Tensor, x: torch.Tensor, activation: str,
+                approx: bool = True):
+    """Streaming Conv2d over (time, height) with a carried (ktime-1)-frame
+    input memory (compute_conv2d, nnet_arch.h:225-251).  Unused by the
+    RNNoise graph.
+
+    weights: [out_ch, in_ch, ktime, kheight]; x: [S, in_ch, H + kheight - 1];
+    mem: [S, ktime-1, in_ch, H + kheight - 1].  Returns (new_mem,
+    out [S, out_ch, H]).  The products accumulate in f64 and round once, as
+    ``exact_dot``'s do: true f32, never TF32."""
+    out_ch, in_ch, ktime, kheight = weights.shape
+    buf = torch.cat([mem, x[:, None]], dim=1)          # [S, ktime, C, Hin]
+    lhs = buf.reshape(buf.shape[0], ktime * in_ch, -1)
+    w = weights.permute(0, 2, 1, 3).reshape(out_ch, ktime * in_ch, kheight)
+    out = torch.nn.functional.conv1d(lhs.double(), w.double()).float()
+    if bias is not None:
+        out = out + bias[None, :, None]
+    if activation == "tanh":
+        out = _tanh(out, approx)
+    elif activation == "sigmoid":
+        out = _sigmoid(out, approx)
+    return buf[:, 1:], out
 
 
 def gru_step(p_in: LinearParams, p_rec: LinearParams, state: torch.Tensor,

@@ -20,6 +20,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig, resolve_device
 from .data import RNNoiseDataset
@@ -44,13 +45,31 @@ def make_optimizer(params: Dict, lr: float = 1e-3, lr_decay: float = 5e-5):
     return opt, sched
 
 
+def _all_reduce_mean(tensors, process_group) -> None:
+    """Average ``tensors`` in place over the group's ranks: one all-reduce
+    of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=process_group)
+    flat /= dist.get_world_size(process_group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
 def make_train_step(optimizer, scheduler, gamma: float = 0.25,
-                    sparse: bool = False, remat: bool = True):
+                    sparse: bool = False, remat: bool = True,
+                    process_group=None):
     """Returns (params, states, batch, step) -> (states, metrics): one
     optimizer step on ``params`` in place.  ``batch`` is (features, gain,
     vad) on the params' device; ``states`` the three GRU states (detached in
     the result); ``step`` the step count the sparsifier's schedule reads;
-    ``metrics`` the loss and its two parts as tensors."""
+    ``metrics`` the loss and its two parts as tensors.
+
+    With a ``process_group`` (e.g. ``torch.distributed.group.WORLD``) each
+    rank passes its shard of the batch, of equal size: the gradients and the
+    metrics are averaged over the ranks after the backward pass, which gives
+    the gradient of the global batch's mean loss (as the JAX package's step
+    gets from its shardings, rnnoise_tpu/training/train.py:67-72), and every
+    rank then steps AdamW and the sparsifier identically."""
 
     def step_fn(params, states, batch, step):
         features, gain, vad = batch
@@ -60,12 +79,15 @@ def make_train_step(optimizer, scheduler, gamma: float = 0.25,
                                       gain[:, 3:-1], vad[:, 3:-1], gamma)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = torch.stack([loss.detach(), gl.detach(), vl.detach()])
+        if process_group is not None:
+            _all_reduce_mean([t.grad for t in param_leaves(params)]
+                             + [metrics], process_group)
         optimizer.step()
         scheduler.step()
         if sparse:
             sparsify_step(params, step)
-        metrics = dict(loss=loss.detach(), gain_loss=gl.detach(),
-                       vad_loss=vl.detach())
+        metrics = dict(zip(("loss", "gain_loss", "vad_loss"), metrics))
         return tuple(h.detach() for h in new_states), metrics
 
     return step_fn

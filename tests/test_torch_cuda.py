@@ -415,3 +415,84 @@ def test_engine_without_int8_model_ticks_on_the_default_runtime(dev, model):
     assert outs["default"].shape == (S, 3 * T * 480)
     assert np.abs(outs["default"]).max() > 0
     np.testing.assert_array_equal(outs["default"], outs["fused"])
+
+
+def test_fanout_engine_equals_streaming_engine(dev):
+    """FanoutEngine (2 worker processes) on the card gives the
+    StreamingEngine's output bit for bit, through the monokernel."""
+    from rnnoise_tpu_torch.runtime.fanout import FanoutEngine
+
+    model = RNNoise.from_filename(MODEL_BLOB, device=dev)
+    S, T = 16, 8
+    pcm = _signal(np.random.default_rng(3), S, 3 * T)
+    sigs = pcm.transpose(1, 0, 2).reshape(S, -1)
+    ref = StreamingEngine(S, model, chunk_frames=T)
+    for _ in range(S):
+        ref.attach()
+    ref.pool.push_all(sigs)
+    assert [ref.tick() for _ in range(3)] == [S] * 3
+    want, _ = ref.pool.pull_all(3 * T * 480)
+    eng = FanoutEngine(S, model, chunk_frames=T, n_workers=2)
+    try:
+        assert eng.attach_all() == S
+        eng.push_all(sigs)
+        mono = cuda_frame.process_chunk_monokernel.launches
+        assert [eng.tick() for _ in range(3)] == [S] * 3
+        assert cuda_frame.process_chunk_monokernel.launches == mono + 3
+        got, full = eng.pull_all(3 * T * 480)
+    finally:
+        eng.close()
+    assert full == S
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_monokernel_equals_unsharded(dev):
+    """Two stream shards on one card (a mesh naming it twice): the int16
+    processor launches the monokernel once a shard and equals the
+    unsharded launch bit for bit."""
+    from rnnoise_tpu_torch.parallel import sharding
+
+    params = load_model_file(MODEL_BLOB, device=dev)
+    S, T = 64, 6
+    pcm = torch.from_numpy(_signal(np.random.default_rng(4), S, T)).to(dev)
+    run = sharding.make_sharded_processor_tm_i16(
+        params, sharding.make_mesh(devices=[dev, dev]))
+    mono = cuda_frame.process_chunk_monokernel.launches
+    st_s, out_s, vad_s = run(init_state(S, device=dev), pcm)
+    assert cuda_frame.process_chunk_monokernel.launches == mono + 2
+    st_u, out_u, vad_u = process_frames_tm_i16(params, init_state(S, device=dev), pcm)
+    assert torch.equal(out_s, out_u) and torch.equal(vad_s, vad_u)
+    assert torch.equal(st_s.rnn.gru3, st_u.rnn.gru3)
+
+
+def test_data_parallel_train_step_nccl_world_size_one(dev, tmp_path):
+    """The train step with an NCCL process group of one rank equals the
+    step without one (the all-reduce of one rank averages nothing)."""
+    import torch.distributed as dist
+
+    from rnnoise_tpu_torch.config import ModelConfig
+    from rnnoise_tpu_torch.parallel import multihost
+    from rnnoise_tpu_torch.training.model import init_params, param_leaves
+    from rnnoise_tpu_torch.training.train import make_optimizer, make_train_step
+
+    cfg = ModelConfig(cond_size=32, gru_size=64)
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        rng.normal(0, 1.5, (8, 24, 65)), rng.uniform(0, 1, (8, 24, 32)),
+        rng.uniform(0, 1, (8, 24, 1))))
+    results = []
+    multihost.init_distributed(f"file://{tmp_path / 'rdv'}", 1, 0, "nccl")
+    try:
+        for group in (None, dist.group.WORLD):
+            params = init_params(torch.Generator().manual_seed(0), cfg, dev)
+            opt, sched = make_optimizer(params)
+            states = tuple(torch.zeros(8, 64, device=dev) for _ in range(3))
+            _, m = make_train_step(opt, sched, process_group=group)(
+                params, states, batch, 0)
+            results.append((float(m["loss"]),
+                            [t.detach() for t in param_leaves(params)]))
+    finally:
+        dist.destroy_process_group()
+    assert abs(results[0][0] - results[1][0]) < 1e-6
+    for a, b in zip(results[0][1], results[1][1]):
+        assert float((a - b).abs().max()) <= 1e-6 * max(float(b.abs().max()), 1e-30)
