@@ -65,6 +65,25 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              NCCL against the step without a group; (g) a saved and loaded
              state continues bit for bit, and checked_process_frames passes
              clean input and raises on a planted NaN.
+8. tools   — the offline tools, each chained into a path on the card: (a)
+             shrink(rnnoise_synth_v1.blob) equals the little blob byte for
+             byte, and the two blobs served by process_frames_tm_i16 (S=1024,
+             T=20, default configuration) give the same int16 and VAD bit for
+             bit; (b) dump_tables' .npz equals the port's tables; (c) seeded
+             full-width params (cond 128, GRU 384) saved in the reference's
+             torch layout, imported by load_torch_checkpoint exactly,
+             exported as int8, shrunk, loaded and served (S=64, T=20): one
+             monokernel launch within the parity budget of its plain
+             version, and equal to the unshrunk blob's output; (d) the same
+             params in the Keras layout through import_tf (an h5py file
+             through its CLI, or an in-memory stand-in for the h5 group
+             where h5py is missing): int8 and float blobs equal (c)'s; (e) a
+             synthetic room recorded at the sweep tools' defaults (a 60 s
+             sweep) with and without a 0.05 % clock drift, measured by
+             measure_rir (host seconds logged) and held to
+             tests/test_sweep_tools.py's checks, then passed as -rir_list to
+             tools.dump_features on the card (16 sequences of 2000 frames):
+             finite records, forward_spectral's launches counted.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Without a CUDA device it exits 1 and prints no result.
@@ -216,6 +235,21 @@ def bound(n_bytes, flops):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def zero_counts(counted):
+    """Set every kernel wrapper's launch count to 0."""
+    for _, fn in counted:
+        fn.launches = 0
+
+
+def count_launches(counted, path):
+    """Add each wrapper's launches since ``zero_counts`` to its kernel's
+    record, under ``path`` and in all; returns {kernel: launches}."""
+    for rec, fn in counted:
+        rec["launches_by_path"][path] = fn.launches
+        rec["launches"] += fn.launches
+    return {rec["name"]: fn.launches for rec, fn in counted}
+
+
 def write_corpus(d, seed, seconds=60):
     """speech.pcm, noise.pcm and fg.pcm (int16, 48 kHz) in ``d``: harmonic
     speech-like tones at three pitches, gated every other half second so
@@ -254,12 +288,6 @@ def phase_train(dev, smi, counted):
     from rnnoise_tpu_torch.training.export import export_blob
     from rnnoise_tpu_torch.training.train import make_optimizer, make_train_step
 
-    def count_launches(path):
-        for rec, fn in counted:
-            rec["launches_by_path"][path] = fn.launches
-            rec["launches"] += fn.launches
-        return {rec["name"]: fn.launches for rec, fn in counted}
-
     figures = {}
     with tempfile.TemporaryDirectory() as d:
         write_corpus(d, SEED + 6)
@@ -275,8 +303,7 @@ def phase_train(dev, smi, counted):
             return out
         dump_tool._sequence_features = timed_extract
         feats_path = os.path.join(d, "features.f32")
-        for _, fn in counted:
-            fn.launches = 0
+        zero_counts(counted)
         t0 = time.perf_counter()
         try:
             dump_tool.dump_features(*(os.path.join(d, f"{n}.pcm") for n in ("speech", "noise", "fg")),
@@ -285,7 +312,7 @@ def phase_train(dev, smi, counted):
         finally:
             dump_tool._sequence_features = extract
         dump_s = time.perf_counter() - t0
-        launches = count_launches("train_features")
+        launches = count_launches(counted, "train_features")
         check(launches["forward_spectral"] >= TRAIN_T,
               f"feature extraction launched forward_spectral {launches['forward_spectral']} times")
         check(all(v == 0 for k, v in launches.items() if k != "forward_spectral"),
@@ -358,11 +385,10 @@ def phase_train(dev, smi, counted):
     pcm = signals(64, 20, dev, SEED + 7, quiet=range(0, 64, 8))
     st0 = init_state(64, model.config, dev)
     torch.cuda.synchronize()
-    for _, fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     st, out, vad = process_frames_tm_i16(model.params, st0, pcm)
     torch.cuda.synchronize()
-    launches = count_launches("train_serve")
+    launches = count_launches(counted, "train_serve")
     check(launches["process_chunk_monokernel"] == 1
           and sum(launches.values()) == 1, f"serving the trained model launched {launches}")
     check(tuple(out.shape) == (20, 64, 480) and out.dtype == torch.int16
@@ -477,16 +503,6 @@ def phase_serving_rest(dev, smi, counted, model, audio):
     from rnnoise_tpu_torch.utils import debug, state_io
     from rnnoise_tpu_torch.weights.registry import load_registered
 
-    def count_launches(path):
-        for rec, fn in counted:
-            rec["launches_by_path"][path] = fn.launches
-            rec["launches"] += fn.launches
-        return {rec["name"]: fn.launches for rec, fn in counted}
-
-    def zero_counts():
-        for _, fn in counted:
-            fn.launches = 0
-
     figures = {}
     procs = []
     tmp = os.path.join(kernels.BUILD_DIR, f"phase7-{os.getpid()}-{uuid.uuid4().hex}")
@@ -497,14 +513,14 @@ def phase_serving_rest(dev, smi, counted, model, audio):
         for pipelined in (False, True):
             ref = StreamingEngine(16, model, chunk_frames=8, pipelined=pipelined)
             ref_adv, ref_out = drive_bulk(ref, sigs, 8, 3)
-            zero_counts()
+            zero_counts(counted)
             eng = FanoutEngine(16, model, chunk_frames=8, n_workers=2,
                                pipelined=pipelined)
             try:
                 adv, out = drive_bulk(eng, sigs, 8, 3)
             finally:
                 eng.close()
-            launches = count_launches("fanout" if not pipelined else "fanout_pipelined")
+            launches = count_launches(counted, "fanout" if not pipelined else "fanout_pipelined")
             check(launches["process_chunk_monokernel"] == 4
                   and sum(launches.values()) == 4,
                   f"the fan-out engine launched {launches}")
@@ -600,20 +616,20 @@ def phase_serving_rest(dev, smi, counted, model, audio):
                             ("cuda:0 twice", sharding.make_mesh(devices=[dev, dev]))):
             run = sharding.make_sharded_processor_tm_i16(model.params, mesh)
             sync(dev)
-            zero_counts()
+            zero_counts(counted)
             _, s_out, s_vad = run(st0, pcm)
             sync(dev)
-            launches = count_launches(f"shard_i16 ({label})")
+            launches = count_launches(counted, f"shard_i16 ({label})")
             check(launches["process_chunk_monokernel"] == len(mesh)
                   and sum(launches.values()) == len(mesh),
                   f"the sharded int16 processor launched {launches} over {len(mesh)} shards")
             check(torch.equal(s_out, u_out) and torch.equal(s_vad, u_vad),
                   f"sharded ({label}) int16 output differs from the unsharded monokernel's")
             runf = sharding.make_sharded_processor(model.params, mesh)
-            zero_counts()
+            zero_counts(counted)
             _, sf_out, sf_vad = runf(st0, pcm.transpose(0, 1).float())
             sync(dev)
-            launches_f = count_launches(f"shard_float ({label})")
+            launches_f = count_launches(counted, f"shard_float ({label})")
             pcm_err = float((sf_out - uf_out).abs().max())
             vad_err = float((sf_vad - uf_vad).abs().max())
             check(pcm_err <= 4 and vad_err <= 2e-3,
@@ -724,6 +740,331 @@ def phase_serving_rest(dev, smi, counted, model, audio):
                 p.kill()
                 p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+    return figures
+
+
+
+LITTLE_MODEL = os.path.join(REPO, "models", "rnnoise_synth_v1_little.blob")
+SHRINK_S, SHRINK_T = 1024, 20        # phase 8 (a): the little blob served
+IMPORT_S, IMPORT_T = 64, 20          # phase 8 (c): the imported model served
+RIR_SEQS, RIR_T = 16, 2000           # phase 8 (e): RIR-augmented extraction
+RIR_DELAY, RIR_NOISE, RIR_DRIFT = 3000, 1e-4, 1.0005
+
+
+def room_rir(fs, rng):
+    """A synthetic room (tests/test_sweep_tools.py:17-29): the direct path,
+    reflections at 4, 11 and 19 ms and an exponentially decaying diffuse
+    tail."""
+    n = int(0.25 * fs)
+    h = np.zeros(n)
+    h[0] = 1.0
+    for pos, amp in ((int(0.004 * fs), 0.6), (int(0.011 * fs), -0.35),
+                     (int(0.019 * fs), 0.25)):
+        h[pos] = amp
+    t = np.arange(n) / fs
+    h += 0.05 * rng.standard_normal(n) * np.exp(-t / 0.05)
+    return h
+
+
+def record_session(seq16, h, rng):
+    """The session played through room ``h`` and recorded RIR_DELAY samples
+    late with white noise of RIR_NOISE."""
+    from scipy.signal import fftconvolve
+    y = fftconvolve(seq16.astype(np.float64) / 32768.0, h)
+    y = np.concatenate([np.zeros(RIR_DELAY), y, np.zeros(4800)])
+    return y + RIR_NOISE * rng.standard_normal(len(y))
+
+
+def torch_state_dict(host):
+    """Params (numpy, the port's layout) in the reference checkpoint's
+    layout: torch nn.GRU's r, z, n gates, [out, in], conv [out, in, k]."""
+    import torch
+
+    def rz(x, n):
+        return np.concatenate([x[n:2 * n], x[:n], x[2 * n:]])
+    sd = {}
+    for name in ("conv1", "conv2"):
+        w = host[name]["w"]
+        sd[f"{name}.weight"] = w.reshape(3, -1, w.shape[-1]).transpose(2, 1, 0)
+        sd[f"{name}.bias"] = host[name]["b"]
+    for name in ("gru1", "gru2", "gru3"):
+        p, n = host[name], host[name]["w_rec"].shape[0]
+        sd[f"{name}.weight_ih_l0"] = rz(p["w_in"].T, n)
+        sd[f"{name}.weight_hh_l0"] = rz(p["w_rec"].T, n)
+        sd[f"{name}.bias_ih_l0"] = rz(p["b_in"], n)
+        sd[f"{name}.bias_hh_l0"] = rz(p["b_rec"], n)
+    for name in ("dense_out", "vad_dense"):
+        sd[f"{name}.weight"] = host[name]["w"].T
+        sd[f"{name}.bias"] = host[name]["b"]
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def keras_layers(host):
+    """Params (numpy) in the Keras layout of tests/test_import_tf.py:29-53:
+    {layer: [(dataset name, array)]}, GRU gates z, r, h, conv [k, in, out],
+    the reset_after bias [2, 3N]."""
+    out = {}
+    for name in ("conv1", "conv2"):
+        w = host[name]["w"]
+        out[name] = [("kernel:0", w.reshape(3, -1, w.shape[-1])),
+                     ("bias:0", host[name]["b"])]
+    for name in ("gru1", "gru2", "gru3"):
+        p = host[name]
+        out[name] = [("kernel:0", p["w_in"]), ("recurrent_kernel:0", p["w_rec"]),
+                     ("bias:0", np.stack([p["b_in"], p["b_rec"]]))]
+    for name in ("dense_out", "vad_dense"):
+        out[name] = [("kernel:0", host[name]["w"]), ("bias:0", host[name]["b"])]
+    return out
+
+
+class H5Group(dict):
+    """An in-memory stand-in for an h5py group, for machines without h5py:
+    ``keys``, ``[]`` and ``in`` from the dict, an ``attrs`` mapping; its
+    datasets are numpy arrays (which have ``shape``)."""
+
+    def __init__(self, items=(), attrs=None):
+        super().__init__(items)
+        self.attrs = attrs or {}
+
+
+def keras_file(layers):
+    """``keras_layers``' output as an H5Group with the file's nesting
+    (model_weights/<layer>/<layer>/<dataset>, weight_names attributes)."""
+    def group(name, arrays):
+        names = np.array([f"{name}/{n}".encode() for n, _ in arrays])
+        return H5Group({name: H5Group(arrays, {"weight_names": names})})
+    return H5Group({"model_weights": H5Group(
+        {name: group(name, arrays) for name, arrays in layers.items()})})
+
+
+def write_keras_h5(h5py, path, layers):
+    with h5py.File(path, "w") as f:
+        mw = f.create_group("model_weights")
+        for name, arrays in layers.items():
+            g = mw.create_group(name).create_group(name)
+            for n, a in arrays:
+                g.create_dataset(n, data=a)
+            g.attrs["weight_names"] = np.array(
+                [f"{name}/{n}".encode() for n, _ in arrays])
+
+
+def phase_tools(dev, smi, counted, model):
+    """Phase 8: the offline tools, each chained into a path on the card;
+    returns its figures."""
+    import tempfile
+
+    import torch
+    from rnnoise_tpu_torch import tables
+    from rnnoise_tpu_torch.api import RNNoise
+    from rnnoise_tpu_torch.denoise import init_state, process_frames_tm_i16
+    from rnnoise_tpu_torch.dsp import cuda_frame
+    from rnnoise_tpu_torch.tools import dump_features as dump_tool
+    from rnnoise_tpu_torch.tools import (dump_tables, import_tf, import_torch,
+                                         rir_deconv, sweep)
+    from rnnoise_tpu_torch.tools.shrink_model import shrink
+    from rnnoise_tpu_torch.training import model as tmodel
+    from rnnoise_tpu_torch.training.export import export_blob
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    figures, launches = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        # (a) shrink: the little blob is shrink's output and serves alike
+        blob = read(MODEL)
+        small = shrink(blob)
+        check(small == read(LITTLE_MODEL),
+              "shrink(rnnoise_synth_v1.blob) differs from rnnoise_synth_v1_little.blob")
+        little = RNNoise.from_buffer(small, device=dev)
+        pcm = signals(SHRINK_S, SHRINK_T, dev, SEED + 8, quiet=range(0, SHRINK_S, 16))
+        served = []
+        zero_counts(counted)
+        for m in (model, little):
+            _, out, vad = process_frames_tm_i16(
+                m.params, init_state(SHRINK_S, m.config, dev), pcm)
+            served.append((out, vad))
+        sync(dev)
+        launches["shrink"] = count_launches(counted, "tools_shrink")
+        (out_f, vad_f), (out_l, vad_l) = served
+        pcm_diff = int((out_f != out_l).sum())
+        vad_diff = int((vad_f != vad_l).sum())
+        log(f"[tools] shrink: {len(blob)} -> {len(small)} bytes, equal to the little blob; "
+            f"both served (S={SHRINK_S}, T={SHRINK_T}, default configuration): "
+            f"{pcm_diff} PCM samples and {vad_diff} VADs differ (of {out_f.numel()} and "
+            f"{vad_f.numel()}), PCM max {int((out_f.int() - out_l.int()).abs().max())} LSB, "
+            f"VAD max {float((vad_f - vad_l).abs().max()):.3e}; launches {launches['shrink']}")
+        check(launches["shrink"]["process_chunk_monokernel"] == 2
+              and sum(launches["shrink"].values()) == 2,
+              f"serving the two blobs launched {launches['shrink']}")
+        check(pcm_diff == 0 and vad_diff == 0,
+              "the little blob's output differs from the full blob's")
+
+        # (b) dump_tables: the .npz holds the port's tables
+        npz = os.path.join(d, "tables.npz")
+        check(dump_tables.main([npz]) == 0, "dump_tables exited non-zero")
+        want = dict(eband20ms=tables.EBAND20MS, band_matrix=tables.band_matrix(),
+                    interp_matrix=tables.interp_matrix(), half_window=tables.half_window(),
+                    full_window=tables.full_window(), dct_matrix=tables.dct_matrix(),
+                    biquad_hp_b=tables.BIQUAD_HP_B, biquad_hp_a=tables.BIQUAD_HP_A)
+        got = np.load(npz)
+        check(sorted(got.files) == sorted(want), f"dump_tables keys {got.files}")
+        for k, v in want.items():
+            check(got[k].dtype == v.dtype and np.array_equal(got[k], v), f"table {k}")
+        check(got["band_matrix"].shape == (32, 481) and got["dct_matrix"].shape == (32, 32),
+              "table shapes")
+        log(f"[tools] dump_tables: {len(want)} arrays equal the port's tables")
+
+        # (c) a reference-layout checkpoint at full width, imported, exported,
+        # shrunk and served
+        params = tmodel.init_params(torch.Generator().manual_seed(SEED + 9), device=dev)
+        host = tmodel.params_to_numpy(params)
+        pth = os.path.join(d, "model.pth")
+        torch.save({"state_dict": torch_state_dict(host),
+                    "model_kwargs": {"cond_size": 128, "gru_size": 384}}, pth)
+        imported = import_torch.load_torch_checkpoint(pth, device=dev)
+        for layer, leaves in params.items():
+            for name, t in leaves.items():
+                u = imported[layer][name]
+                check(u.device == t.device and u.requires_grad and torch.equal(u, t),
+                      f"imported {layer}.{name} differs from the seeded params")
+        blob_q = export_blob(imported, quantize=True)
+        blob_f = export_blob(imported, quantize=False)
+        full = RNNoise.from_buffer(blob_q, device=dev)
+        shrunk = RNNoise.from_buffer(shrink(blob_q), device=dev)
+        check(shrunk.config.gru_size == 384 and shrunk.config.cond_size == 128,
+              "imported topology")
+        pcm = signals(IMPORT_S, IMPORT_T, dev, SEED + 10, quiet=range(0, IMPORT_S, 8))
+        st0 = init_state(IMPORT_S, shrunk.config, dev)
+        sync(dev)
+        zero_counts(counted)
+        _, out, vad = process_frames_tm_i16(shrunk.params, st0, pcm)
+        sync(dev)
+        launches["import"] = count_launches(counted, "tools_import")
+        check(launches["import"]["process_chunk_monokernel"] == 1
+              and sum(launches["import"].values()) == 1,
+              f"serving the imported model launched {launches['import']}")
+        check(tuple(out.shape) == (IMPORT_T, IMPORT_S, 480) and out.dtype == torch.int16
+              and bool(torch.isfinite(vad).all()), "served output")
+        _, p_out, p_vad = cuda_frame.process_chunk_monokernel_plain(shrunk.params, st0, pcm)
+        _, f_out, f_vad = process_frames_tm_i16(full.params, st0, pcm)
+        pcm_err = int((out.int() - p_out.int()).abs().max())
+        vad_err = float((vad - p_vad).abs().max())
+        same = bool(torch.equal(out, f_out) and torch.equal(vad, f_vad))
+        log(f"[tools] import_torch (cond 128, GRU 384): params equal the seeded ones; int8 "
+            f"blob {len(blob_q)} bytes, shrunk {len(shrink(blob_q))}; served (S={IMPORT_S}, "
+            f"T={IMPORT_T}): launches {launches['import']}, PCM {pcm_err} LSB (<= 4) and VAD "
+            f"{vad_err:.2e} (<= 2e-3) against its plain version; equal to the unshrunk "
+            f"blob's output: {same}")
+        check(pcm_err <= 4 and vad_err <= 2e-3, "the imported model leaves the parity budget")
+        check(same, "the shrunk imported model serves differently from the unshrunk one")
+        figures["import"] = dict(pcm_err=pcm_err, vad_err=vad_err)
+
+        # (d) the same params as a Keras file, through import_tf
+        layers = keras_layers(host)
+        try:
+            import h5py
+        except ImportError:
+            h5py = None
+        if h5py is not None:
+            h5 = os.path.join(d, "model.h5")
+            write_keras_h5(h5py, h5, layers)
+            for flag, want_blob in (([], blob_q), (["--float"], blob_f)):
+                out_path = os.path.join(d, "keras.blob")
+                import_tf.main([h5, out_path, "--device", str(dev)] + flag)
+                check(read(out_path) == want_blob, f"import_tf {flag} blob differs from (c)'s")
+            how = "h5py file through the CLI"
+        else:
+            kparams = import_tf.params_from_keras_h5(keras_file(layers), device=dev)
+            check(all(t.device.type == dev.type for leaves in kparams.values()
+                      for t in leaves.values()),
+                  "import_tf's params are not on the card")
+            check(export_blob(kparams, True) == blob_q and export_blob(kparams, False) == blob_f,
+                  "import_tf's blob differs from (c)'s")
+            how = "in-memory stand-in for the h5 group (no h5py here)"
+        log(f"[tools] import_tf ({how}): int8 and float blobs equal (c)'s byte for byte")
+        figures["import_tf"] = how
+
+        # (e) a room measured at the tools' defaults, fed to feature extraction
+        spec = sweep.SweepSpec()
+        rng = np.random.default_rng(SEED + 11)
+        h = room_rir(spec.fs, rng)
+        seq = sweep.measurement_sequence(spec)
+        y = record_session(seq, h, rng)
+        from scipy.signal import resample
+        y_drift = resample(y, int(round(len(y) * RIR_DRIFT)))
+        t0 = time.perf_counter()
+        rir = rir_deconv.measure_rir(y, spec)
+        rir_s = time.perf_counter() - t0
+        rir_drift = rir_deconv.measure_rir(y_drift, spec)
+        href = h / np.sqrt(np.sum(h ** 2))
+        n = min(len(rir), len(href))
+        corr = float(np.dot(rir[:n], href[:n]))
+        a = np.abs(rir)
+        early = [float(a[int(s * spec.fs)] / np.median(a)) for s in (0.004, 0.011)]
+        ad = np.abs(rir_drift)
+        direct = int(np.argmax(ad))
+        echo = [float(ad[direct + int(s * spec.fs) - 2:direct + int(s * spec.fs) + 3].max()
+                      / ad[direct]) for s in (0.004, 0.011)]
+        log(f"[tools] measure_rir at the defaults ({len(seq)} samples, {len(seq) / spec.fs:.1f} s "
+            f"session, 60 s sweep): {rir_s:.3f} s on the host, {len(rir)} taps, correlation "
+            f"with the room {corr:.5f} (> 0.97), 4/11 ms echoes {early[0]:.1f}/{early[1]:.1f} x "
+            f"the median (> 5); with {100 * (RIR_DRIFT - 1):.2f} % drift: direct at {direct} "
+            f"(< 64), echoes {echo[0]:.3f}/{echo[1]:.3f} of it (> 0.3/0.15), direct "
+            f"{float(ad[direct]):.3f} (> 0.3)")
+        check(n > int(0.01 * spec.fs) and corr > 0.97 and int(np.argmax(a)) == 0
+              and min(early) > 5, "the measured RIR does not match the room")
+        check(direct < 64 and echo[0] > 0.3 and echo[1] > 0.15 and ad[direct] > 0.3,
+              "the drifted recording's RIR lost the room's echoes")
+        rir_path, rir_list = os.path.join(d, "room.f32"), os.path.join(d, "rirs.txt")
+        rir.astype(np.float32).tofile(rir_path)
+        with open(rir_list, "w") as f:
+            f.write(rir_path + "\n")
+
+        write_corpus(d, SEED + 6)
+        extract, filt, spans, filtered = (dump_tool._sequence_features,
+                                          dump_tool.rir_filter_sequence, [], [])
+
+        def timed_extract(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = extract(*args)
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t0)
+            return out
+
+        def counted_filter(audio, Y):
+            filtered.append(1)
+            return filt(audio, Y)
+        dump_tool._sequence_features = timed_extract
+        dump_tool.rir_filter_sequence = counted_filter
+        feats_path = os.path.join(d, "features.f32")
+        zero_counts(counted)
+        t0 = time.perf_counter()
+        try:
+            dump_tool.dump_features(*(os.path.join(d, f"{n}.pcm") for n in ("speech", "noise", "fg")),
+                                    feats_path, RIR_SEQS, rir_list=rir_list, batch=RIR_SEQS,
+                                    seed=SEED + 12, seq_len=RIR_T, device=dev)
+        finally:
+            dump_tool._sequence_features = extract
+            dump_tool.rir_filter_sequence = filt
+        dump_s = time.perf_counter() - t0
+        launches["rir_features"] = count_launches(counted, "tools_rir_features")
+        data = np.fromfile(feats_path, dtype=np.float32).reshape(-1, 98)
+        figures.update(measure_rir_host_s=rir_s, rir_corr=corr,
+                       rir_features_s_per_100_frames=100 * spans[0] / RIR_T)
+        log(f"[tools] dump_features -rir_list, {RIR_SEQS} x {RIR_T} frames (S={RIR_SEQS}): "
+            f"{dump_s:.2f} s in all, feature extraction {spans[0]:.2f} s = "
+            f"{figures['rir_features_s_per_100_frames']:.4f} s per 100 frames; "
+            f"{len(filtered)} RIR filterings (clean and noisy); launches "
+            f"{launches['rir_features']}")
+        check(len(filtered) > 0, "no sequence went through the measured RIR")
+        check(data.shape[0] == RIR_SEQS * RIR_T and bool(np.isfinite(data).all()),
+              "RIR-augmented feature records")
+        n_fwd = launches["rir_features"]["forward_spectral"]
+        check(n_fwd >= RIR_T and sum(launches["rir_features"].values()) == n_fwd,
+              f"RIR-augmented extraction launched {launches['rir_features']}")
+    figures["launches"] = launches
     return figures
 
 
@@ -1089,10 +1430,6 @@ def main():
         rec["launches"] = 0
         rec["launches_by_path"] = {}
 
-    def zero_counts():
-        for _, fn in counted:
-            fn.launches = 0
-
     # 3. the main path, in each configuration -------------------------------
     pcm = signals(S_MAIN, 2 * T_MAIN, dev, SEED, quiet=range(0, S_MAIN, 16))
     pcm64 = signals(S_PARITY, T_PARITY, dev, SEED + 1, quiet=range(0, S_PARITY, 8))
@@ -1101,7 +1438,7 @@ def main():
         T_path = T_SLOW if path in ("scan", "xcorr") else T_MAIN
         state = init_state(S_MAIN, cfg, dev)
         torch.cuda.synchronize()
-        zero_counts()
+        zero_counts(counted)
         t0 = time.perf_counter()
         for c in range(2):
             state, out, vad = process_frames_tm_i16(
@@ -1109,9 +1446,7 @@ def main():
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         states[path] = state
-        for rec, fn in counted:
-            rec["launches_by_path"][path] = fn.launches
-            rec["launches"] += fn.launches
+        count_launches(counted, path)
         log(f"[main:{path}] S={S_MAIN} T={T_path} x2 chained: {main_s:.2f} s, launches "
             + ", ".join(f"{r['name']}={fn.launches}" for r, fn in counted))
         for rec, fn in counted:
@@ -1145,7 +1480,7 @@ def main():
 
     # 4. serving, on the default configuration ---------------------------------
     default = next(p for p, rt in CONFIGURATIONS.items() if rt == rt_config.DEFAULT_RUNTIME)
-    zero_counts()
+    zero_counts(counted)
     T_CH = 8
     audio = signals(16, 4 * T_CH, dev, SEED + 2).transpose(0, 1).reshape(16, -1).cpu().numpy()
     for pipelined in (False, True):
@@ -1205,6 +1540,12 @@ def main():
     serving = phase_serving_rest(dev, smi, counted, model, audio)
     log(f"[serving] phase 7 took {time.perf_counter() - t0:.1f} s: "
         + json.dumps(serving))
+
+    # 8. the offline tools, chained into the card's paths ---------------------
+    t0 = time.perf_counter()
+    tools = phase_tools(dev, smi, counted, model)
+    log(f"[tools] phase 8 took {time.perf_counter() - t0:.1f} s on {smi}: "
+        + json.dumps(tools))
 
     print(json.dumps({"kernels": [rec for rec, _ in counted]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -132,11 +132,27 @@ def linear(p: LinearParams, x: torch.Tensor, quantized: bool) -> torch.Tensor:
 
 def dense(p: LinearParams, x: torch.Tensor, activation: str, quantized: bool,
           approx: bool) -> torch.Tensor:
-    out = linear(p, x, quantized)
+    return apply_activation(linear(p, x, quantized), activation, approx)
+
+
+def apply_activation(out: torch.Tensor, activation: str,
+                     approx: bool) -> torch.Tensor:
+    """Full activation set of compute_activation_c (src/nnet_arch.h:79-125,
+    names per src/nnet.h:34-39).  ``approx`` mirrors HIGH_ACCURACY, which
+    only affects sigmoid/tanh; swish and softmax always use the approximate
+    forms, relu and linear are exact either way."""
     if activation == "tanh":
         return _tanh(out, approx)
     if activation == "sigmoid":
         return _sigmoid(out, approx)
+    if activation == "relu":
+        return relu(out)
+    if activation == "swish":
+        return swish(out)
+    if activation == "softmax":
+        return softmax(out)
+    if activation == "linear":
+        return out
     raise ValueError(activation)
 
 

@@ -48,3 +48,15 @@ def test_package_imports_without_a_card():
     from rnnoise_tpu_torch import kernels
     assert not {"rnn_step", "spectral", "analysis", "frame"} & set(kernels._LIBS)
     assert "frame" in kernels.KERNEL_SOURCES
+
+
+def test_import_tf_leaves_h5py_unimported():
+    """h5py is imported only when a Keras file is opened: the card's
+    machine need not have it."""
+    import subprocess
+    import sys
+    code = ("import sys; import rnnoise_tpu_torch.tools.import_tf; "
+            "sys.exit('h5py' in sys.modules)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr or "h5py was imported"

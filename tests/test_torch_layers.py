@@ -103,3 +103,87 @@ def test_conv2d_step(activation):
         want = np.asarray(want)
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
         np.testing.assert_array_equal(tmem.numpy(), np.asarray(jmem))
+
+
+ACTIVATIONS = ["tanh", "sigmoid", "relu", "swish", "softmax", "linear"]
+
+
+def _dyadic(rng, shape):
+    """Multiples of 1/64 in [-1, 1]: every product and sum of a short dot
+    is exact in f32, so both packages' linear parts agree exactly whatever
+    their summation order (the port sums in f64, XLA in f32) and the test
+    holds the activations."""
+    return (rng.integers(-64, 65, shape) / 64.0).astype(np.float32)
+
+
+def _linear_params(rng, n_in, n_out, quantized):
+    W = _dyadic(rng, (n_in, n_out))
+    fields = dict(weights_f32=W, bias=_dyadic(rng, n_out))
+    if quantized:
+        scale = (np.abs(W).max(0) / 127).astype(np.float32)
+        fields["weights_q"] = np.round(W / scale).astype(np.int8)
+        fields["scale"] = scale
+    return (jl.LinearParams(**{k: jnp.asarray(v) for k, v in fields.items()}),
+            tl.LinearParams(**{k: torch.from_numpy(v)
+                               for k, v in fields.items()}))
+
+
+def _assert_close(got, want):
+    """rtol 1e-6 where the port's value is normal or zero.  XLA's CPU code
+    flushes subnormals to zero (softmax's lpcnet_exp of a large negative
+    input); the port keeps them as C does, so there JAX must hold 0."""
+    sub = (got != 0) & (np.abs(got) < np.finfo(np.float32).tiny)
+    np.testing.assert_array_equal(want[sub], 0)
+    np.testing.assert_allclose(got[~sub], want[~sub], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("activation", ACTIVATIONS)
+def test_dense_full_activation_set(activation, quantized):
+    """dense through apply_activation (rnnoise_tpu/nn/layers.py:144-167),
+    with and without the approximate tanh and sigmoid."""
+    rng = np.random.default_rng(4)
+    jp, tp = _linear_params(rng, 16, 24, quantized)
+    x = _dyadic(rng, (5, 16))
+    for approx in (True, False):
+        want = np.asarray(jl.dense(jp, jnp.asarray(x), activation, quantized,
+                                   approx))
+        got = tl.dense(tp, torch.from_numpy(x), activation, quantized,
+                       approx).numpy()
+        assert got.shape == (5, 24) and got.dtype == np.float32
+        _assert_close(got, want)
+        np.testing.assert_array_equal(
+            got, tl.apply_activation(tl.linear(tp, torch.from_numpy(x),
+                                               quantized),
+                                     activation, approx).numpy())
+
+
+@pytest.mark.parametrize("activation", ["relu", "swish", "softmax", "linear"])
+def test_conv1d_step_activations(activation):
+    """conv1d_step (k=3) through dense with the memory carried over two
+    steps, in both numerics."""
+    rng = np.random.default_rng(5)
+    for quantized in (False, True):
+        jp, tp = _linear_params(rng, 3 * 8, 12, quantized)
+        jmem, tmem = jnp.zeros((4, 16)), torch.zeros(4, 16)
+        for _ in range(2):
+            x = _dyadic(rng, (4, 8))
+            jmem, want = jl.conv1d_step(jp, jmem, jnp.asarray(x), activation,
+                                        quantized, True)
+            tmem, got = tl.conv1d_step(tp, tmem, torch.from_numpy(x),
+                                       activation, quantized, True)
+            _assert_close(got.numpy(), np.asarray(want))
+            np.testing.assert_array_equal(tmem.numpy(), np.asarray(jmem))
+
+
+def test_unknown_activation_raises():
+    rng = np.random.default_rng(6)
+    jp, tp = _linear_params(rng, 8, 8, False)
+    x = _dyadic(rng, (2, 8))
+    with pytest.raises(ValueError, match="gelu"):
+        jl.dense(jp, jnp.asarray(x), "gelu", False, True)
+    with pytest.raises(ValueError, match="gelu"):
+        tl.dense(tp, torch.from_numpy(x), "gelu", False, True)
+    with pytest.raises(ValueError, match="gelu"):
+        tl.conv1d_step(tp, torch.zeros(2, 0), torch.from_numpy(x), "gelu",
+                       False, True)
