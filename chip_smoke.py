@@ -48,9 +48,11 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              included, bit for bit; then the tick at S=1024, T=8 on the
              registered model: StreamingEngine and FanoutEngine with K = 1,
              2 and 4 workers, plain and pipelined, the median of 20 ticks
-             after 3 of warm-up, and each engine's tick split into its
-             stages (assemble, host to device, device, device to host,
-             commit; plain, the card synchronised after each), with the
+             after 3 of warm-up (``bench.time_ticks``: a pipelined run's
+             trailing synchronise spread over its ticks), and each
+             engine's tick split into its stages (assemble, host to
+             device, device, device to host, commit; plain, the card
+             synchronised after each), with the
              realtime streams a tick sustains and the host's cores; (b) the
              registry's model equals the file's; (c) the demo command line
              in a subprocess on 2 s of PCM equals StreamDenoiser on the
@@ -84,6 +86,15 @@ Phases, in order (each prints as it goes; any failure exits non-zero):
              tests/test_sweep_tools.py's checks, then passed as -rir_list to
              tools.dump_features on the card (16 sequences of 2000 frames):
              finite records, forward_spectral's launches counted.
+9. bench   — the port's bench (python -m rnnoise_tpu_torch.bench) in a
+             subprocess on three rows: mono and fused at S=1024, T=100 and
+             the pipelined serving tick at S=1024, T=8; its last line
+             parses with correct true, each row launched its
+             configuration's kernels and only those (the launches join the
+             kernels line under "bench <row>"), and the mono row's streams
+             are within 10 % of phase 5's; then again on the two chunk
+             rows, stopped by SIGTERM once the first row's line is out: the
+             last line still parses, with at least one row run.
 
 The line before the last is the kernels' JSON record; the last line is the
 device record.  Without a CUDA device it exits 1 and prints no result.
@@ -153,11 +164,14 @@ TRAIN_STEPS, TRAIN_FROM = 3, 6000    # sparse steps, from the sparsifier's start
 CHECK_B, CHECK_T = 4, 200            # phase 6's card-against-CPU step
 FANOUT_S, FANOUT_T = 1024, 8         # phase 7's tick: the engine's default T
 FANOUT_K = (1, 2, 4)                 # fan-out worker processes
-FANOUT_TICKS, FANOUT_WARMUP = 20, 3
+FANOUT_TICKS = 20                    # after the bench's 3 of warm-up
 FANOUT_RING = 32                     # ring frames a slot (4 ticks)
-TICK_STAGES = ("assemble", "to_device", "device", "to_host", "commit")
 CAPI_FRAMES = 20
 SUBPROCESS_TIMEOUT_S = 300
+BENCH_ROWS = ("chunk:mono:1024:100", "chunk:fused:1024:100",
+              "serve:pipelined:1024:8")      # phase 9
+BENCH_TIMEOUT_S = 420
+BENCH_MONO_SPREAD = 0.10     # the bench's mono row against phase 5's figure
 
 
 def log(*a):
@@ -440,46 +454,6 @@ def drive_bulk(eng, sigs, T, n_chunks):
     return adv, out
 
 
-def time_ticks(eng, block, n, stages=False):
-    """Seconds of each of ``n`` ticks after FANOUT_WARMUP, the pool fed one
-    chunk of ``block`` [S, T*480] before each tick and its output rings
-    drained after (neither timed; in pipelined mode the card works on
-    meanwhile).  With ``stages`` the tick runs stage by stage (plain mode),
-    the card synchronised after each, and each stage's seconds are returned
-    too."""
-    T = eng.chunk_frames
-    dev = eng.device
-    drain = np.empty((eng.n_slots, T * 480), np.int16)
-    ticks, parts = [], {k: [] for k in TICK_STAGES}
-    for i in range(FANOUT_WARMUP + n):
-        eng.pool.push_all(block)
-        t0 = time.perf_counter()
-        if not stages:
-            eng.tick()
-            t = [time.perf_counter()]
-        else:
-            batch, counts, reset = eng._assemble(T)
-            t = [time.perf_counter()]
-            args = eng._to_device(batch, counts, reset)
-            sync(dev)
-            t.append(time.perf_counter())
-            out = eng._compute(*args)
-            sync(dev)
-            t.append(time.perf_counter())
-            host = eng._to_host(out)
-            t.append(time.perf_counter())
-            eng._commit(T, host, counts)
-            t.append(time.perf_counter())
-        eng.pool.pull_all(T * 480, out=drain)
-        if i >= FANOUT_WARMUP:
-            ticks.append(t[-1] - t0)
-            for k, a, b in zip(TICK_STAGES, [t0] + t[:-1], t):
-                parts[k].append(b - a)
-    eng.flush()
-    eng.pool.pull_all(T * 480, out=drain)
-    return ticks, (parts if stages else None)
-
-
 def phase_serving_rest(dev, smi, counted, model, audio):
     """Phase 7: the fan-out engine (checked, then timed), the registry, the
     demo, the C ABI, the sharded processors, the data-parallel train step
@@ -492,6 +466,7 @@ def phase_serving_rest(dev, smi, counted, model, audio):
     import torch.distributed as dist
     from rnnoise_tpu_torch import capi, kernels
     from rnnoise_tpu_torch.api import RNNoise, StreamDenoiser
+    from rnnoise_tpu_torch.bench import time_ticks
     from rnnoise_tpu_torch.config import ModelConfig
     from rnnoise_tpu_torch.denoise import (init_state, process_frames,
                                            process_frames_tm_i16)
@@ -1068,6 +1043,84 @@ def phase_tools(dev, smi, counted, model):
     return figures
 
 
+def run_bench(rows, stop_after_first=False):
+    """``python -m rnnoise_tpu_torch.bench --rows ...`` in a subprocess;
+    with ``stop_after_first`` it is sent SIGTERM once the first row's line
+    is out.  Returns (exit code, the stdout lines parsed).  SIGTERM, then
+    SIGKILL, after BENCH_TIMEOUT_S."""
+    import signal
+    import threading
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rnnoise_tpu_torch.bench", "--rows", *rows],
+        stdout=subprocess.PIPE, text=True, cwd=REPO)
+
+    def overrun():
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+    timer = threading.Timer(BENCH_TIMEOUT_S, overrun)
+    timer.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(json.loads(line))
+            if stop_after_first and len(lines) == 1:
+                proc.send_signal(signal.SIGTERM)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, lines
+
+
+def phase_bench(smi, counted, path_kernels, mono_streams):
+    """Phase 9: the port's bench on three rows, then stopped by SIGTERM
+    after its first row; returns its figures."""
+    rc, lines = run_bench(BENCH_ROWS)
+    check(rc == 0 and len(lines) == len(BENCH_ROWS) + 1,
+          f"bench exit {rc}, {len(lines)} lines")
+    *rows, last = lines
+    check(last["correct"] is True and last["configs_run"] == len(BENCH_ROWS)
+          and not last["rows_failed"], f"bench last line {last}")
+    check(f"{last['device']['kind']}, {last['device']['power_limit']}" == smi,
+          f"bench device {last['device']}")
+    for row in rows:
+        spec = row["row"]
+        path = row.get("path", "mono")       # the engine serves the default
+        for rec, _ in counted:
+            n = row["launches"][rec["name"]]
+            check((n > 0) == (rec["name"] in path_kernels[path]),
+                  f"bench {spec} launched {rec['name']} {n} times")
+            if n:
+                rec["launches_by_path"][f"bench {spec}"] = n
+                rec["launches"] += n
+        log(f"[bench] {spec}: " + ", ".join(
+            f"{k} {row[k]:.4g}" for k in ("streams", "median_ms", "tick_ms",
+                                          "tick_p90_ms", "build_s", "first_call_s")
+            if k in row) + f", launches {sum(row['launches'].values())}")
+    mono = rows[0]["streams"]
+    log(f"[bench] mono {mono:.1f} streams against phase 5's {mono_streams:.1f} "
+        f"({mono / mono_streams - 1:+.2%}, within {BENCH_MONO_SPREAD:.0%}); "
+        f"last line: {json.dumps(last)}")
+    check(abs(mono / mono_streams - 1) <= BENCH_MONO_SPREAD,
+          "the bench's mono row is off phase 5's figure")
+    rc2, lines2 = run_bench(BENCH_ROWS[:2], stop_after_first=True)
+    check(rc2 == 0 and lines2 and lines2[-1]["configs_run"] >= 1
+          and lines2[-1]["correct"] is True,
+          f"the bench stopped by SIGTERM: exit {rc2}, {lines2[-1:]}")
+    log(f"[bench] stopped by SIGTERM after its first row: exit {rc2}, "
+        f"configs_run {lines2[-1]['configs_run']}")
+    return {"value": last["value"], "path": last["path"],
+            "tick_ms": last["tick_ms"], "tick_p90_ms": last["tick_p90_ms"],
+            "mono_streams": mono, "phase5_mono_streams": mono_streams,
+            "rows": {r["row"]: r.get("streams") for r in rows},
+            "sigterm_configs_run": lines2[-1]["configs_run"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1546,6 +1599,12 @@ def main():
     tools = phase_tools(dev, smi, counted, model)
     log(f"[tools] phase 8 took {time.perf_counter() - t0:.1f} s on {smi}: "
         + json.dumps(tools))
+
+    # 9. the port's bench, on the card's main path and the engine --------------
+    t0 = time.perf_counter()
+    benched = phase_bench(smi, counted, path_kernels, streams["mono"])
+    log(f"[bench] phase 9 took {time.perf_counter() - t0:.1f} s on {smi}: "
+        + json.dumps(benched))
 
     print(json.dumps({"kernels": [rec for rec, _ in counted]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -198,3 +198,73 @@ def test_the_port_has_every_tool():
     jax_tools = {m for m in JAX_MODULES if m.startswith("tools/")}
     assert len(jax_tools) >= 8
     assert jax_tools <= set(_modules(PORT))
+
+
+# The JAX system's entry points outside its package: each file at the repo
+# root and each script under scripts/ that is not the port's own
+# (``torch_*``) -> (the port's counterpart, what it is there).  A place is
+# a path from the repo root, or "path:name".
+ENTRY_POINTS = {
+    "bench.py":
+        ("rnnoise_tpu_torch/bench.py", "the bench of record: chunk rows"),
+    "__graft_entry__.py":
+        ("rnnoise_tpu_torch/entry.py:entry", "one batched step; dryrun_multigpu"),
+    "scripts/bench_engine.py":
+        ("rnnoise_tpu_torch/bench.py:serve_row", "the serving tick, by stage"),
+    "scripts/host_scale.py":
+        ("rnnoise_tpu_torch/bench.py:host_row", "the fan-out's host tick by K"),
+    "scripts/profile_pipeline.py":
+        ("scripts/torch_profile.py", "torch.profiler over one chained chunk"),
+    "scripts/mono_parts.py":
+        ("scripts/torch_frame_phases.py", "the whole-chunk kernel by span"),
+    "scripts/build_capi.sh":
+        ("rnnoise_tpu_torch/capi.py:build_capi", "g++ builds the C ABI shim"),
+    "scripts/dump_features_parallel.sh":
+        ("scripts/torch_dump_features_parallel.sh", "the same fan-out"),
+    "scripts/ci.sh":
+        ("scripts/torch_ci.sh", "the port's tests, entry and dry run on CPU"),
+}
+
+# Entry points the port drops, and why.
+DROPPED_ENTRY_POINTS = {
+    "scripts/bench_mono.py":
+        "times the Pallas monokernel's alias, frames-per-step and block "
+        "variants: VMEM levers of the TPU, which csrc/frame.cu does not have",
+    "scripts/probe_int8.py":
+        "probes whether Mosaic lowers int8 dots to the TPU's MXU rate; the "
+        "port's int8 products are mma.sync in csrc/rnn_step.cu and frame.cu",
+    "scripts/prewarm.py":
+        "fills JAX's persistent compile cache; the port builds its kernels "
+        "with nvcc at first use in each process (kernels.py)",
+    "scripts/tpu_fast_parity.py":
+        "checks the TPU's bf16-X3 matmuls against f32, a TPU workaround the "
+        "port drops (its sums are f32 or f64)",
+}
+
+
+def _jax_entry_points():
+    root = {f for f in os.listdir(REPO)
+            if f.endswith((".py", ".sh")) and f != "chip_smoke.py"}
+    scripts = {f"scripts/{f}" for f in os.listdir(os.path.join(REPO, "scripts"))
+               if f.endswith((".py", ".sh")) and not f.startswith("torch_")}
+    return sorted(root | scripts)
+
+
+@pytest.mark.parametrize("rel", _jax_entry_points())
+def test_every_entry_point_has_a_counterpart(rel):
+    assert (rel in ENTRY_POINTS) != (rel in DROPPED_ENTRY_POINTS), \
+        f"{rel}: no counterpart and no reason, or both"
+
+
+def test_entry_point_entries_are_live():
+    points = set(_jax_entry_points())
+    assert set(ENTRY_POINTS) | set(DROPPED_ENTRY_POINTS) == points
+    assert all(reason.strip() for reason in DROPPED_ENTRY_POINTS.values())
+    bad = []
+    for key, (place, what) in ENTRY_POINTS.items():
+        rel, _, name = place.partition(":")
+        path = os.path.join(REPO, rel)
+        if not what or not os.path.exists(path) \
+                or (name and not _defined(path, name)):
+            bad.append(key)
+    assert not bad, f"counterparts missing for {bad}"
